@@ -1,0 +1,185 @@
+"""K2/K3: one PCR level of the spanning-forest factorization and its
+apply (CUDA kernels + plain PyTorch versions).
+
+Replace ``mycelium_tpu/fea/pallas_factor.py::_factor_kernel`` (K2) and
+``_apply_kernel``/``_apply_kernel_chunked`` (K3). The source note in
+``csrc/pcr.cu`` says what bounds them and how.
+
+A 3x3 block batch is a (9, S) tensor of row-major component planes, a
+3-vector batch a (3, S) tensor (or (3, S, K) for K right-hand sides in the
+plain version). Row i of the block tridiagonal couples to i-1 through
+L_i = B[i]^T and to i+1 through R_i = B[i+1]; slots outside [0, S) read as
+zero (the TPU versions roll; both are exact because couplings vanish at
+path ends). The plain functions are the counterparts of
+``mycelium_tpu/fea/tree_jax.py::_pcr_coeffs``/``_pcr_apply``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+TRANSPOSE9 = [0, 3, 6, 1, 4, 7, 2, 5, 8]   # planes of a 3x3 block transposed
+
+
+def _sh(x, k: int):
+    """y[:, i] = x[:, i+k] along dim 1, zero outside (k may be < 0)."""
+    if k == 0:
+        return x
+    n = x.shape[1]
+    if abs(k) >= n:
+        return torch.zeros_like(x)
+    pad = [0, 0] * (x.dim() - 2)
+    if k > 0:
+        return F.pad(x[:, k:], pad + [0, k])
+    return F.pad(x[:, :k], pad + [-k, 0])
+
+
+def _mm9(a, b):
+    """Block product of (9, S) plane stacks."""
+    a3 = a.reshape(3, 3, -1)
+    b3 = b.reshape(3, 3, -1)
+    return (a3[:, 0:1] * b3[0:1] + a3[:, 1:2] * b3[1:2]
+            + a3[:, 2:3] * b3[2:3]).reshape(9, -1)
+
+
+def _mv9(m, v):
+    """(9, S) blocks times (3, S[, K]) vectors."""
+    m3 = m.reshape(3, 3, *m.shape[1:])
+    if v.dim() == 3:
+        m3 = m3[..., None]
+    return m3[:, 0] * v[0] + m3[:, 1] * v[1] + m3[:, 2] * v[2]
+
+
+def _inv9(m):
+    """Adjugate inverse of (9, S) blocks; a zero determinant reads as 1."""
+    a, b, c, d, e, f, g, h, i = m
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    det = a * A + b * B + c * C
+    det = torch.where(det != 0, det, torch.ones_like(det))
+    return torch.stack(
+        (A / det, -(b * i - c * h) / det, (b * f - c * e) / det,
+         B / det, (a * i - c * g) / det, -(a * f - c * d) / det,
+         C / det, -(a * h - b * g) / det, (a * e - b * d) / det))
+
+
+def pcr_coeffs_plain(D, B, steps: int):
+    """PCR recurrence: returns (alphas, betas) (steps, 9, S) and dinv
+    (9, S)."""
+    L = B[TRANSPOSE9]
+    R = _sh(B, 1)
+    alphas, betas = [], []
+    s = 1
+    for _ in range(steps):
+        dinv = _inv9(D)
+        a = _mm9(L, _sh(dinv, -s))
+        b = _mm9(R, _sh(dinv, s))
+        D = D - (_mm9(a, _sh(R, -s)) + _mm9(b, _sh(L, s)))
+        L = -_mm9(a, _sh(L, -s))
+        R = -_mm9(b, _sh(R, s))
+        alphas.append(a)
+        betas.append(b)
+        s *= 2
+    empty = D.new_zeros((0, 9, D.shape[1]))
+    al = torch.stack(alphas) if alphas else empty
+    be = torch.stack(betas) if betas else empty
+    return al, be, _inv9(D)
+
+
+def pcr_apply_plain(alphas, betas, dinv, r):
+    """x = T^{-1} r from the PCR coefficients; r (3, S) or (3, S, K)."""
+    s = 1
+    for k in range(alphas.shape[0]):
+        r = r - (_mv9(alphas[k], _sh(r, -s)) + _mv9(betas[k], _sh(r, s)))
+        s *= 2
+    return _mv9(dinv, r)
+
+
+def corner_rhs(fg, lg, S: int, dtype, device):
+    """(18, S) unit right-hand sides: plane 6*i + j is component i of
+    column j, with columns 0:3 at every path's first slot and 3:6 at its
+    last."""
+    rhs = torch.zeros((3, 6, S), dtype=dtype, device=device)
+    one = torch.ones((), dtype=dtype, device=device)
+    for i in range(3):
+        rhs[i, i].index_put_((fg,), one, accumulate=True)
+        rhs[i, 3 + i].index_put_((lg,), one, accumulate=True)
+    return rhs.reshape(18, S)
+
+
+def pcr_factor_plain(D, B, fg, lg, steps: int):
+    """Coefficients plus the 6-column corner solve: (al, be, dinv, xc),
+    xc (18, S) with plane 6*i + j = component i of corner column j."""
+    S = D.shape[1]
+    al, be, dinv = pcr_coeffs_plain(D, B, steps)
+    rhs = corner_rhs(fg, lg, S, D.dtype, D.device)
+    X = pcr_apply_plain(al, be, dinv, rhs.reshape(3, 6, S).transpose(1, 2))
+    return al, be, dinv, X.transpose(1, 2).reshape(18, S)
+
+
+def _check(fn, name, t, shape):
+    if t.device.type != "cuda" or t.dtype != torch.float32 or \
+            tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(
+            f"{fn}: {name} must be a contiguous float32 CUDA tensor of shape "
+            f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device} "
+            f"(contiguous={t.is_contiguous()})")
+
+
+def pcr_factor(D, B, fg, lg, steps: int):
+    """One PCR level's factorization: K2 for CUDA tensors (float32 only,
+    raises otherwise), the plain version for CPU tensors."""
+    if D.device.type == "cpu":
+        return pcr_factor_plain(D, B, fg, lg, steps)
+    S = D.shape[1]
+    _check("pcr_factor", "D", D, (9, S))
+    _check("pcr_factor", "B", B, (9, S))
+    rhs = corner_rhs(fg, lg, S, D.dtype, D.device)
+    al = torch.empty((steps, 9, S), dtype=D.dtype, device=D.device)
+    be = torch.empty_like(al)
+    dinv = torch.empty((9, S), dtype=D.dtype, device=D.device)
+    xc = torch.empty((18, S), dtype=D.dtype, device=D.device)
+    work = torch.empty((90, S), dtype=D.dtype, device=D.device)
+    rc = build.library().pcr_factor_f32(
+        D.data_ptr(), B.data_ptr(), rhs.data_ptr(), al.data_ptr(),
+        be.data_ptr(), dinv.data_ptr(), xc.data_ptr(), work.data_ptr(), S,
+        steps, build.stream_handle(D))
+    build.check(rc, "pcr_factor_f32")
+    build.count_launch("pcr_factor")
+    return al, be, dinv, xc
+
+
+@functools.cache
+def apply_max_steps() -> int:
+    """Most PCR rounds K3's shared-memory window takes."""
+    return build.library().pcr_apply_max_steps()
+
+
+def pcr_apply(alphas, betas, dinv, r):
+    """u = T^{-1} r on one level: K3 for CUDA tensors (float32 only,
+    raises otherwise), the plain version for CPU tensors."""
+    if r.device.type == "cpu":
+        return pcr_apply_plain(alphas, betas, dinv, r)
+    steps = alphas.shape[0]
+    S = r.shape[1]
+    _check("pcr_apply", "alphas", alphas, (steps, 9, S))
+    _check("pcr_apply", "betas", betas, (steps, 9, S))
+    _check("pcr_apply", "dinv", dinv, (9, S))
+    _check("pcr_apply", "r", r, (3, S))
+    if steps > apply_max_steps():
+        raise ValueError(f"pcr_apply: {steps} rounds exceed the kernel's "
+                         f"window ({apply_max_steps()}); bound the path "
+                         "length with tree_max_path_len")
+    u = torch.empty_like(r)
+    rc = build.library().pcr_apply_f32(
+        alphas.data_ptr(), betas.data_ptr(), dinv.data_ptr(), r.data_ptr(),
+        u.data_ptr(), S, steps, build.stream_handle(r))
+    build.check(rc, "pcr_apply_f32")
+    build.count_launch("pcr_apply")
+    return u
