@@ -14,31 +14,50 @@ fails (non-zero exit) if any phase fails:
 4. compare K5 with its plain version on the 22,125-DOF mesh (after 1 and
    10 iterations, const and linear basis; converged; two launches equal),
    and time both;
-5. the FEA path, launch counts set to 0 before and read after: a cold
-   solve at 22,125 DOF checked in float64 against the stiffness assembled
-   with scipy, the 40-step ramp (steps 1-3 against the port's plain path
-   on the CPU in float64), a cold solve at 309k DOF (coarse weight 0.25);
-6. the sweep path, counts set to 0 before and read after: cg + coarse cold
+5. compare K6 with its plain version on the 22,125-DOF mesh, intact and 5%
+   fractured with the islands pinned (one preconditioner apply on a random
+   vector, the load case after 1 iteration and converged; two launches
+   equal), and time both;
+6. the same comparison at the shapes of the larger meshes the main paths
+   solve, 99k DOF (5 forest levels) and 309k DOF (6 levels), where fills
+   and attachments cross several levels; then K6 against the hybrid (K1-K3
+   and a CG loop on the host) in one call: cold solves at 22,125, 99k and
+   309k DOF, the same preconditioner on both sides, iterations and the
+   float64 residual beside each time; this (and ``profile_fea.py`` on
+   larger meshes) is what the memory guard ``TREE_KERNEL_MAX_BYTES`` rests
+   on;
+7. the FEA path, launch counts set to 0 before and read after: a cold
+   solve at 22,125 DOF through K6, checked in float64 against the
+   stiffness assembled with scipy, the 40-step ramp (steps 1-3 against the
+   port's plain path on the CPU in float64), ``run_ramp_async`` on the same
+   model (records equal to ``run_ramp``'s), a cold solve at 309k DOF
+   through K6 (the configuration's coarse weight 0.25 is not read there)
+   and the same solve on the hybrid with that weight, as a model that
+   cannot run K6 takes it: K1-K3's launches are read here;
+8. the sweep path, counts set to 0 before and read after: cg + coarse cold
    solves through K5 (median of 5 at 22,125 DOF with the float64 residual
    check, one at 309k DOF), then the 15-combination solver x
-   preconditioner sweep on the 22,125-DOF mesh;
-7. the growth path, counts set to 0 before and read after: the xlarge
+   preconditioner sweep on the 22,125-DOF mesh, its cg + tree leg and
+   physics solve through K6, its other tree legs through the hybrid
+   (K1-K3);
+9. the growth path, counts set to 0 before and read after: the xlarge
    preset (2^21 segment slots) for GROWTH_STEPS steps, K4 launched once
    per step;
-8. K4 against its plain version on the grown xlarge state: bit-equal;
-9. the demo preset grown twice with the same draws, through K4 and through
+10. K4 against its plain version on the grown xlarge state: bit-equal;
+11. the demo preset grown twice with the same draws, through K4 and through
    the plain scan: equal states every 25 steps and at the end;
-10. the coupled pipeline at the medium preset with the fast solver preset,
+12. the coupled pipeline at the medium preset with the fast solver preset,
    counts set to 0 before and read after: grow -> mesh -> model on the
-   card -> cold solve (float64 residual check) -> 40-step ramp.
+   card -> cold solve (float64 residual check) -> 40-step ramp, the
+   solves through K6 where the model can run it.
 
 The last lines are the card again, one JSON object with the kernels'
 numbers, and ``{"ok": true, "device": {...}}``. Needs one CUDA card; with
 none it exits non-zero and prints no result. No JAX is imported.
 
 Time: the whole run must end within 1200 s, the kernels' build included;
-phases 4 and 6 (K5 and the sweep) have a budget of 90 s of it. On an
-H100 the run takes about 40 s, those two phases about 18 s.
+phases 4 and 8 (K5 and the sweep) have a budget of 90 s of it. On an
+H100 the run takes about a minute.
 """
 
 from __future__ import annotations
@@ -68,8 +87,9 @@ F32_MARGIN = 5e-5
 # the float64 residual bound of a tree-PC solve, which may stop on a
 # plateau within 10 (STALL_ACCEPT) times its tolerance
 STALL_LIMIT = 10.0 * RTOL + F32_MARGIN
-# K5 stops only on its tolerance: no stall exit
+# K5 and K6 stop only on their tolerance: no stall exit
 K5_LIMIT = SWEEP_RTOL + F32_MARGIN
+K6_LIMIT = RTOL + F32_MARGIN
 GROWTH_STEPS = 150     # xlarge steps (the preset's full run)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
 F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
@@ -441,11 +461,44 @@ def ramp_check(coords, conn, cfg, model, device):
     if not (worst_u <= 1e-3 and worst_f <= 1e-3):
         raise AssertionError(f"ramp disagrees with the float64 path: "
                              f"disp {worst_u:.3e}, force {worst_f:.3e}")
-    return n_rec, fractured, wall
+    return n_rec, fractured, wall, res
+
+
+def async_check(coords, conn, cfg, model, device, loop, loop_wall) -> float:
+    """``run_ramp_async`` on the same model: the records of ``run_ramp``.
+    The kernels add in a fixed order, but the per-solve diagonal is
+    assembled with index_add_ (float atomics on the card), so two runs may
+    differ in the last bits of a solve's inputs: the active masks and the
+    iteration counts must be equal, displacement (per-step L2) and force
+    within 1e-4 of the ramp's largest."""
+    from mycelium_tpu_torch.fea import run_ramp_async
+    t0 = time.perf_counter()
+    res = run_ramp_async(coords, conn, cfg, model=model, sync_every=8)
+    sync(device)
+    wall = time.perf_counter() - t0
+    same_shape = res.disp_record.shape == loop.disp_record.shape
+    same_active = same_shape and np.array_equal(res.active_record,
+                                                loop.active_record)
+    du = df = float("inf")
+    if same_shape:
+        scale = max(np.linalg.norm(loop.disp_record, axis=1).max(), 1e-300)
+        du = float(np.linalg.norm(res.disp_record - loop.disp_record,
+                                  axis=1).max() / scale)
+        fs = max(np.abs(loop.force_disp[:, 1]).max(), 1e-300)
+        df = float(np.abs(res.force_disp[:, 1]
+                          - loop.force_disp[:, 1]).max() / fs)
+    log(f"run_ramp_async: {res.force_disp.shape[0]} steps, wall {wall:.3f} s "
+        f"(run_ramp {loop_wall:.3f} s); active masks equal {same_active}, "
+        f"displacement rel L2 {du:.3e}, force rel {df:.3e} (tol 1e-4), "
+        f"{int(res.cg_iters.sum())} CG iterations "
+        f"(run_ramp {int(loop.cg_iters.sum())})")
+    if not (same_active and du <= 1e-4 and df <= 1e-4):
+        raise AssertionError("run_ramp_async disagrees with run_ramp")
+    return wall
 
 
 def grow_full_width(preset: str, steps: int, device):
-    """Phase 7: growth at the preset's full width. K4 must launch once per
+    """Phase 9: growth at the preset's full width. K4 must launch once per
     step; no capacity may overflow."""
     import torch
     from mycelium_tpu_torch.config import GROWTH_PRESETS
@@ -485,7 +538,7 @@ def grow_full_width(preset: str, steps: int, device):
 
 
 def compare_anast(st, cfg, device) -> dict:
-    """Phase 8: K4 against its plain version on a grown state, with the
+    """Phase 10: K4 against its plain version on a grown state, with the
     tables the step's query builds."""
     import torch
     from mycelium_tpu_torch.growth import neighbors as nb
@@ -562,7 +615,7 @@ def grow_plain_scan(cfg, device, on_step):
 
 
 def trajectory_check(preset: str, device, every: int = 25):
-    """Phase 9: grow the preset twice with the same draws, through K4
+    """Phase 11: grow the preset twice with the same draws, through K4
     (``run_growth``) and through its plain version; the states and their
     stats must be equal every ``every`` steps and at the end."""
     import torch
@@ -686,6 +739,174 @@ def compare_chain_cg(model, conn, cfg, device, rng) -> dict:
                 bound_by=b5[1], library_ms=None)
 
 
+def tree_cg_work(model, iters: int) -> tuple:
+    """(bytes, operations, streamed bytes) of one K6 solve of ``model``
+    that takes ``iters`` iterations. Bytes: every input and table read
+    once and x written once. Operations: the factorization once (per slot
+    and round 563, a last inverse 131, per path ~500 for the corner blocks
+    and Schur products), then per iteration the operator (65 a position, 30
+    a jump entry), two level applies (36 a slot and round plus 15), and the
+    dots and updates (42 a position). Streamed: what the phases move
+    between barriers, the factorization's state and coefficients once
+    (~250 B a slot and round) and per iteration the coefficients twice and
+    the vectors."""
+    from mycelium_tpu_torch.fea.model import tree_kernel_bytes
+    from mycelium_tpu_torch.kernels.tree_cg import work_floats
+    meta, tk = model.tree.meta, model.tree_tables
+    n, S, P = model.n_nodes, model.tree.n_slots, model.tree.n_paths
+    sizes = [b - a for a, b in zip(meta.level_offsets,
+                                   meta.level_offsets[1:])]
+    io = tree_kernel_bytes(model) - 4 * work_floats(n, S, P, tk)
+    fac = sum(sl * (k * 563 + 131) for sl, k in zip(sizes, meta.level_steps))
+    app = sum(sl * (k * 36 + 15) for sl, k in zip(sizes, meta.level_steps))
+    nj = model.chain.jump_ent.shape[0]
+    ops = fac + 500 * P + (iters + 1) * (2 * app + 107 * n + 30 * nj)
+    coef = 4 * 2 * tk.coef_floats
+    stream = (sum(250 * sl * k for sl, k in zip(sizes, meta.level_steps))
+              + (iters + 1) * (2 * coef + 4 * 9 * 2 * S + 4 * 3 * 10 * n))
+    return io, ops, stream
+
+
+# K6 against its plain version on the card, per mesh: the bound on one
+# preconditioner apply (random vector) and on x after one iteration of the
+# load case, both as a share of the largest entry. The two sides do the same
+# float32 operations, but on the card the plain version adds a junction's
+# Schur corrections and attachment products with index_add_ (float atomics,
+# any order) where the kernel adds them in a fixed order; every further
+# level's adjugate inverses amplify that difference, so the bound grows
+# with the levels: about 8 times the largest reading of the runs recorded in
+# PERF.md (7.1e-6, 6.6e-5 and 8.3e-5)
+K6_TOL = {"22k": 5e-5, "99k": 5e-4, "309k": 5e-4}
+# K6 against its plain version run on the CPU on copies of the same inputs,
+# where index_add_ adds one term after another in the kernel's order: equal
+# bit for bit in every recorded run; the bound leaves a few float32 ulps for
+# a host whose vector sums round otherwise
+K6_TOL_SEQUENTIAL = 1e-6
+
+
+def compare_tree_cg(model, conn, cfg, device, rng, size: str,
+                    timed: bool) -> dict:
+    """Phases 5 and 6: K6 against its plain version, intact and with 5% of
+    the elements fractured (islands pinned), at the shapes of the mesh
+    ``size`` (a key of K6_TOL). Each result is held against the plain
+    version on the card (K6_TOL[size], the noise of its atomics) and
+    against the plain version on the CPU on copies of the same inputs
+    (K6_TOL_SEQUENTIAL), which is what can see a fault in a small level.
+
+    - One apply of the factored preconditioner on a rough vector: zero load,
+      a random start x0, one iteration, so that x1 - x0 = alpha·M^-1(-A x0)
+      passes every level's factorization, fills, flips and attachment
+      products on data with no smoothness to hide a fault.
+    - The load case after one iteration.
+    - Converged: within 1e-5 of the card's plain version, the iterations
+      within 1, and two launches bit-equal (no float atomics in the
+      kernel)."""
+    import torch
+    from mycelium_tpu_torch.devices import moved
+    from mycelium_tpu_torch.fea.ramp import anchored_mask_host
+    from mycelium_tpu_torch.fea.tree_solve import tree_cg_inputs
+    from mycelium_tpu_torch.kernels import tree_cg, tree_cg_plain
+    from mycelium_tpu_torch.kernels.tree_cg import grid_blocks, smem_bytes
+    tol = K6_TOL[size]
+    grip = (model.top_nodes | model.bot_nodes).cpu().numpy()
+    zero = torch.zeros((model.n_nodes, 3), dtype=model.dtype, device=device)
+    rough = torch.as_tensor(rng.standard_normal((model.n_nodes, 3)),
+                            dtype=model.dtype, device=device)
+    dy = cfg.displacement_max
+    off = model.tree.meta.level_offsets
+    log(f"K6 tree_cg {size}: levels of "
+        f"{[b - a for a, b in zip(off, off[1:])]} slots, rounds "
+        f"{model.tree.meta.level_steps}")
+
+    def one_step(tag, args):
+        """K6, plain on the card and plain on the CPU after one iteration;
+        the change of x, so that a start vector does not hide it."""
+        args = list(args)
+        args[-1] = 1
+        start = args[5] * args[4]        # free·x0, what every side starts from
+        (xk, sk), (xp, sp) = tree_cg(*args), tree_cg_plain(*args)
+        xc, sc = tree_cg_plain(*moved(args, "cpu"))
+        err, rel = rel_err([xk - start], [xp - start])
+        err_c, rel_c = rel_err([(xk - start).cpu()], [xc - start.cpu()])
+        log(f"{tag}: against plain on the card max_abs_err={err:.3e} "
+            f"rel={rel:.3e} (tol {tol:.0e}), against plain on the CPU "
+            f"max_abs_err={err_c:.3e} rel={rel_c:.3e} (tol "
+            f"{K6_TOL_SEQUENTIAL:.0e}); |r| {float(sk[1]):.6e}, "
+            f"{float(sp[1]):.6e}, {float(sc[1]):.6e}")
+        if not (rel <= tol and rel_c <= K6_TOL_SEQUENTIAL
+                and int(sk[0]) == int(sp[0]) == int(sc[0]) == 1):
+            raise AssertionError(f"{tag}: disagrees: rel {rel:.3e} (card), "
+                                 f"{rel_c:.3e} (CPU)")
+        return max(err, err_c)
+
+    err_max, args, ik = 0.0, None, 0
+    for frac in (0.05, 0.0):
+        active_np = rng.random(model.n_elems) >= frac
+        anch = torch.as_tensor(anchored_mask_host(np.asarray(conn), active_np,
+                                                  grip), device=device)
+        active = torch.as_tensor(active_np, device=device)
+        tag = f"K6 tree_cg {size}, {frac:.0%} fractured"
+        err_max = max(err_max, one_step(
+            f"{tag}, one apply on a random vector",
+            tree_cg_inputs(model, active, 0.0, 0.0, rough, cfg, anch)))
+        args = tree_cg_inputs(model, active, dy, -dy, zero, cfg, anch)
+        err_max = max(err_max, one_step(f"{tag}, 1 iteration", args))
+        (xk, sk), (xp, sp) = tree_cg(*args), tree_cg_plain(*args)
+        xk2, sk2 = tree_cg(*args)
+        sync(device)
+        same = torch.equal(xk, xk2) and torch.equal(sk, sk2)
+        ik, ip = int(sk[0]), int(sp[0])
+        conv = float(sk[1]) <= float(sk[2]) and float(sp[1]) <= float(sp[2])
+        err, rel = rel_err([xk], [xp])
+        log(f"{tag}, converged {conv}: {ik} iterations (plain {ip}), "
+            f"max_abs_err={err:.3e} rel={rel:.3e} (tol 1e-5), two launches "
+            f"bit-equal: {same}")
+        if not (conv and same and abs(ik - ip) <= 1 and rel <= 1e-5):
+            raise AssertionError(f"{tag}: disagrees with its plain version "
+                                 "or is not deterministic")
+        err_max = max(err_max, err)
+    if not timed:
+        return dict(max_abs_err=err_max)
+    ms = timed_ms(lambda: tree_cg(*args), device, 20)
+    pms = timed_ms(lambda: tree_cg_plain(*args), device, 1)
+    io, ops, stream = tree_cg_work(model, ik)
+    b6 = bound(io, ops)
+    grid = grid_blocks(device.index or 0,
+                       smem_bytes(model.tree_tables.max_steps)) \
+        if device.type == "cuda" else 0
+    log(f"K6 time {ms:.4f} ms a solve ({ik} iterations; plain {pms:.4f} ms, "
+        f"bound {b6[0]:.5f} ms by {b6[1]}: {io / 2**20:.3f} MiB of inputs "
+        f"and tables, {ops / 1e6:.3f} Mop; streaming every phase's "
+        f"{stream / 2**20:.3f} MiB from memory "
+        f"{bound(stream, 0)[0]:.5f} ms); grid {grid} blocks")
+    return dict(name="tree_cg", route="cuda",
+                source="mycelium_tpu_torch/kernels/csrc/tree_cg.cu",
+                replaces="mycelium_tpu/fea/pallas_tree.py:397",
+                max_abs_err=err_max, ms=ms, plain_ms=pms, bound_ms=b6[0],
+                bound_by=b6[1], library_ms=None)
+
+
+def route_compare(model, coords, conn, cfg, device, label: str) -> dict:
+    """Phase 6: the same cold cg + tree solve through K6 and through the
+    hybrid, in turns within this call: median of 5 each, coarse weight 0
+    on both sides so both run the forest preconditioner alone."""
+    from mycelium_tpu_torch.fea.model import (TREE_KERNEL_MAX_BYTES,
+                                              tree_kernel_bytes)
+    cfg0 = dataclasses.replace(cfg, tree_coarse_weight=0.0, warm_start=False)
+    nb = tree_kernel_bytes(model)
+    log(f"{label}: K6 would touch {nb / 1e6:.3f} MB (memory guard "
+        f"{TREE_KERNEL_MAX_BYTES / 1e6:.0f} MB): route "
+        f"{'tree_cg' if model.tree_kernel else 'hybrid'}")
+    out = dict(kernel_bytes=nb, can_run_k6=bool(model.tree_kernel))
+    for name, on, limit in (("k6", True, K6_LIMIT),
+                            ("hybrid", False, STALL_LIMIT)):
+        m = dataclasses.replace(model, tree_kernel=on)
+        out[f"{name}_ms"], out[f"{name}_iters"] = cold_solve(
+            m, coords, conn, cfg0, device, f"{label} cold solve, {name}", 5,
+            limit=limit)
+    return out
+
+
 def grid_blocks_of(device) -> int:
     if device.type != "cuda":
         return 0
@@ -695,16 +916,16 @@ def grid_blocks_of(device) -> int:
 
 def sweep_path(model, coords, conn, model_b, coords_b, conn_b, grip_b,
                device) -> dict:
-    """Phase 6: cg + coarse cold solves through K5 (22,125 DOF: median of
+    """Phase 8: cg + coarse cold solves through K5 (22,125 DOF: median of
     5 with the float64 residual check, beside the same solve on the eager
     chain path; 309k DOF: one, converged within max_iter 3000), then the
     15-combination sweep on the 22,125-DOF mesh in the configuration of
     scripts/bench_sweep_tpu.py (rtol 1e-5, max_iter 3000, tree legs with
     coarse weight 0.25), SWEEP_STEPS ramp steps, one trial each. cg + tree,
     cg + coarse, bicgstab + tree and gmres + tree must converge at every
-    step. The cg + tree leg and the physics solve run the hybrid (K1-K3
-    and the coarse weight), where the JAX package at this size runs its
-    whole-solve tree kernel (B4, not ported, no coarse stage)."""
+    step. The cg + tree leg and the physics solve run K6 (no coarse stage),
+    as the JAX package at this size runs its whole-solve tree kernel; the
+    other tree legs run the hybrid (K1-K3 and the coarse weight)."""
     import tempfile
     from mycelium_tpu_torch.bench import run_solver_sweep
     from mycelium_tpu_torch.config import FeaConfig
@@ -749,11 +970,13 @@ def sweep_path(model, coords, conn, model_b, coords_b, conn_b, grip_b,
     for key, st in meta["combos"].items():
         ms = [r[4] for r in rows if f"{r[1]}+{r[2]}" == key and r[0] > 0]
         combos[key] = dict(median_ms=float(np.median(ms)),
+                           route=st["route"],
                            median_iters=st["median_iters"],
                            max_iters=st["max_iters"],
                            converged_steps=st["converged_steps"],
                            steps=st["steps"])
-        log(f"sweep {key}: median {combos[key]['median_ms']:.3f} ms over "
+        log(f"sweep {key} ({st['route']}): median "
+            f"{combos[key]['median_ms']:.3f} ms over "
             f"the loaded steps, iterations median {st['median_iters']} max "
             f"{st['max_iters']}, converged {st['converged_steps']}/"
             f"{st['steps']} steps")
@@ -762,13 +985,17 @@ def sweep_path(model, coords, conn, model_b, coords_b, conn_b, grip_b,
            if combos[k]["converged_steps"] != combos[k]["steps"]]
     if bad:
         raise AssertionError(f"sweep legs did not converge: {bad}")
+    want = "tree_cg" if model.tree_kernel else "hybrid"
+    if combos["cg+tree"]["route"] != want:
+        raise AssertionError(f"sweep cg+tree took the route "
+                             f"{combos['cg+tree']['route']}, not {want}")
     out["sweep"] = combos
     out["sweep_wall_s"] = wall
     return out
 
 
 def coupled_pipeline(preset: str, device, fea_steps: int = 40) -> dict:
-    """Phase 10: grow -> mesh -> model on the card -> cold solve (float64
+    """Phase 12: grow -> mesh -> model on the card -> cold solve (float64
     residual check) -> ramp, with each stage's wall time, on the solver
     configuration of mycelium_tpu/bench/coupled.py."""
     from mycelium_tpu_torch.config import GROWTH_PRESETS, tuned_fea_config
@@ -787,9 +1014,15 @@ def coupled_pipeline(preset: str, device, fea_steps: int = 40) -> dict:
     model = timed_build(coords, conn, cfg, device, f"coupled {preset}")
     t["build_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    from mycelium_tpu_torch.fea.model import tree_kernel_bytes
+    route = "tree_cg" if model.tree_kernel else "hybrid"
+    log(f"coupled {preset}: K6 would touch "
+        f"{tree_kernel_bytes(model) / 1e6:.3f} MB: route {route}")
     ms, iters = cold_solve(model, coords, conn,
                               dataclasses.replace(cfg, warm_start=False),
-                              device, f"coupled {preset} cold solve", 3)
+                              device, f"coupled {preset} cold solve", 3,
+                              limit=K6_LIMIT if model.tree_kernel
+                              else STALL_LIMIT)
     t["cold_solve_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     res = run_ramp(coords, conn, cfg, model=model)
@@ -805,7 +1038,7 @@ def coupled_pipeline(preset: str, device, fea_steps: int = 40) -> dict:
         + ", ".join(f"{k} {v:.3f}" for k, v in t.items()))
     if n_rec < 2:
         raise AssertionError(f"coupled {preset}: ramp recorded {n_rec}")
-    return dict(segments=hist[-1]["segments"], dof=model.n_dof,
+    return dict(segments=hist[-1]["segments"], dof=model.n_dof, route=route,
                 cold_iters=iters, cold_ms=ms, ramp_steps=n_rec,
                 ramp_iters=int(res.cg_iters.sum()), fractured=fractured,
                 **t)
@@ -813,7 +1046,8 @@ def coupled_pipeline(preset: str, device, fea_steps: int = 40) -> dict:
 
 def run(device, n_small: int = 7375, n_big: int = 103000,
         big_growth: str = "xlarge", growth_steps: int = GROWTH_STEPS,
-        trajectory: str = "demo", coupled: str = "medium") -> dict:
+        trajectory: str = "demo", coupled: str = "medium",
+        n_mid: int = 33000) -> dict:
     import torch
 
     from mycelium_tpu_torch.config import hybrid_fea_config
@@ -839,6 +1073,9 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     t0 = time.perf_counter()
     rows.append(compare_chain_cg(model, conn, k5_config(), device, rng))
     log(f"K5 comparison phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    rows.append(compare_tree_cg(model, conn, cfg, device, rng, "22k", True))
+    log(f"K6 comparison phase, 22k, {time.perf_counter() - t0:.2f} s")
 
     t0 = time.perf_counter()
     coords_b, conn_b = synthetic_mesh(n_big)
@@ -851,14 +1088,49 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     log(f"{label_b}: synthetic mesh {time.perf_counter() - t0:.2f} s")
     model_b = timed_build(coords_b, conn_b, cfg_b, device, label_b)
 
+    # K6 against its plain version on the deeper forests of the larger
+    # meshes the main paths solve, then against the hybrid, in one call, at
+    # the three sizes
+    routes = {"22k": route_compare(model, coords, conn, cfg, device, label)}
+    coords_m, conn_m = synthetic_mesh(n_mid)
+    label_m = f"{3 * n_mid} DOF"
+    model_m = timed_build(coords_m, conn_m, cfg, device, label_m)
+    t0 = time.perf_counter()
+    deep = {"99k": compare_tree_cg(model_m, conn_m, cfg, device, rng, "99k",
+                                   False)}
+    routes["99k"] = route_compare(model_m, coords_m, conn_m, cfg, device,
+                                  label_m)
+    del model_m
+    deep["309k"] = compare_tree_cg(model_b, conn_b, cfg_b, device, rng,
+                                   "309k", False)
+    log(f"K6 comparison phases, 99k and 309k, with the 99k routes "
+        f"{time.perf_counter() - t0:.2f} s")
+    rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"],
+                                  *(d["max_abs_err"] for d in deep.values()))
+    routes["309k"] = route_compare(model_b, coords_b, conn_b, cfg_b, device,
+                                   label_b)
+
     # the FEA path
     reset_launch_counts()
     ms22, it22 = cold_solve(model, coords, conn, cfg, device,
-                               f"cold solve {label}", 7)
-    n_rec, fractured, ramp_s = ramp_check(
-        coords, conn, hybrid_fea_config(), model, device)
+                               f"cold solve {label}", 7,
+                               limit=K6_LIMIT if model.tree_kernel
+                               else STALL_LIMIT)
+    ramp_cfg = hybrid_fea_config()
+    n_rec, fractured, ramp_s, loop = ramp_check(coords, conn, ramp_cfg,
+                                                model, device)
+    async_s = async_check(coords, conn, ramp_cfg, model, device, loop, ramp_s)
     ms309, it309 = cold_solve(model_b, coords_b, conn_b, cfg_b, device,
-                                 f"cold solve {label_b}", 5)
+                                 f"cold solve {label_b}", 5,
+                                 limit=K6_LIMIT if model_b.tree_kernel
+                                 else STALL_LIMIT)
+    # the same system on the hybrid, as a model that cannot run K6 solves
+    # it: K1-K3 and the CG loop on the host, with the configuration's
+    # coarse weight 0.25 (which K6 does not read)
+    hyb309, hyb_it309 = cold_solve(
+        dataclasses.replace(model_b, tree_kernel=False), coords_b, conn_b,
+        cfg_b, device, f"cold solve {label_b}, hybrid with coarse weight "
+        f"{cfg_b.tree_coarse_weight}", 3, limit=STALL_LIMIT)
     sync(device)
     fea_counts = launch_counts()
     log(f"kernel launches on the FEA path: {fea_counts}")
@@ -887,26 +1159,35 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     sync(device)
     pipe_counts = launch_counts()
     log(f"kernel launches on the coupled pipeline: {pipe_counts}")
+    # each kernel's launches are read on the path that is its own, and
+    # every path must have launched what it is said to run
+    hyb = ("chain_matvec", "pcr_factor", "pcr_apply")
+    own = {"chain_matvec": ("FEA", fea_counts),
+           "pcr_factor": ("FEA", fea_counts),
+           "pcr_apply": ("FEA", fea_counts),
+           "tree_cg": ("FEA", fea_counts),
+           "chain_cg": ("sweep", sweep_counts),
+           "anast_scan": ("growth", grow_counts)}
+    for row in rows:
+        row["path"], counts = own[row["name"]]
+        row["launches"] = counts[row["name"]]
     if device.type == "cuda":
-        fea = ("chain_matvec", "pcr_factor", "pcr_apply")
-        missing = [f"FEA {k}" for k in fea if fea_counts[k] < 1]
-        missing += [f"sweep {k}" for k in fea + ("chain_cg",)
-                    if sweep_counts[k] < 1]
-        missing += [f"coupled {k}" for k in fea + ("anast_scan",)
+        solve = ("tree_cg",) if model.tree_kernel else hyb
+        pipe_solve = ("tree_cg",) if pipe["route"] == "tree_cg" else hyb
+        missing = [f"{r['path']} {r['name']}" for r in rows
+                   if r["launches"] < 1]
+        missing += [f"sweep {k}" for k in hyb + solve if sweep_counts[k] < 1]
+        missing += [f"coupled {k}" for k in pipe_solve + ("anast_scan",)
                     if pipe_counts[k] < 1]
-        if grow_counts["anast_scan"] < 1:
-            missing.append("growth anast_scan")
         if missing:
             raise AssertionError(f"kernels never launched: {missing}")
-    for row in rows:
-        row["launches"] = {"anast_scan": grow_counts,
-                           "chain_cg": sweep_counts}.get(
-            row["name"], fea_counts)[row["name"]]
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
-    return dict(kernels=rows, solve_ms_22k=ms22, iters_22k=it22,
-                ramp_s_22k=ramp_s, ramp_steps_22k=n_rec,
+    return dict(kernels=rows, routes=routes, solve_ms_22k=ms22,
+                iters_22k=it22, ramp_s_22k=ramp_s, ramp_async_s_22k=async_s,
+                ramp_steps_22k=n_rec,
                 ramp_fractured_22k=fractured, solve_ms_309k=ms309,
-                iters_309k=it309, sweep=sweep, growth=growth,
+                iters_309k=it309, hybrid_ms_309k=hyb309,
+                hybrid_iters_309k=hyb_it309, sweep=sweep, growth=growth,
                 coupled=pipe)
 
 

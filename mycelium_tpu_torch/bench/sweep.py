@@ -17,14 +17,14 @@ timed. The reference's chained trials (``chain_trials`` and the
 ``x0 * 1e-30`` cold restart) work around its TPU relay and are not
 ported: every row is one solve, ``chain_len`` 1.
 
-Routes on the chain operator: cg + coarse runs the whole-solve kernel K5
+Routes on the chain operator (``fea/solve.py::solve_route``, written into
+the sidecar per combination): cg + coarse runs the whole-solve kernel K5
 (the port of ``pallas_cg.py::_cg_kernel``); cg + tree, in its leg and as
-the primary configuration, runs the hybrid (K1-K3) with
-``tree_coarse_weight`` applied. Where its tables fit VMEM (the
-22,125-DOF mesh) the reference sends cg + tree to its whole-solve tree
-kernel (``pallas_tree.py::_tree_cg_kernel``), which has no coarse stage
-and is not ported yet: there the port's cg + tree rows time another
-preconditioner than the reference's, to the same tolerance.
+the primary configuration, runs the whole-solve tree kernel K6 (the port of
+``pallas_tree.py::_tree_cg_kernel``, no coarse stage) on a model that can
+run it (``model.tree_kernel``), as the reference does where its tables
+fit, and the hybrid (K1-K3) with ``tree_coarse_weight`` applied
+otherwise; every other combination runs the chain path.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ import torch
 from ..devices import DEFAULT_DEVICE
 from ..fea.model import build_model
 from ..fea.ramp import SolveDivergedError, anchored_mask_host, ramp_step
+from ..fea.solve import solve_route
 from ..io.writers import write_sweep_results
 
 DEFAULT_SOLVERS = ("cg", "bicgstab", "gmres")
@@ -143,6 +144,7 @@ def run_solver_sweep(coords, conn, cfg,
         "combos": {
             f"{s}+{pc}": {
                 "chain_len": 1,
+                "route": solve_route(model, ccfg[(s, pc)]),
                 "converged_steps": int(sum(st["converged"])),
                 "steps": len(st["converged"]),
                 "median_iters": float(np.median(st["iters"]))

@@ -4,7 +4,7 @@
       [--steps N] [--seed S] [--capacity C] [--preset P]
       [--snapshots none|csv] [--csv-variant python|cpp] [--device cuda|cpu]
   python -m mycelium_tpu_torch.cli fea <results_dir> [--fea-steps N]
-      [--grip G] [--disp-max D] [--preset fast|reference] [--f64]
+      [--grip G] [--disp-max D] [--preset fast|reference] [--f64] [--scan]
       [--csv-variant python|cpp] [--device cuda|cpu]
   python -m mycelium_tpu_torch.cli pipeline [grow options] [fea options]
       (the growth preset is --growth-preset there)
@@ -18,6 +18,8 @@ the solver preset ``fast`` (``tuned_fea_config``: chain operator, tree
 preconditioner with the coarse correction) or ``reference``
 (``FeaConfig()``: ELL operator, block-Jacobi); ``pipeline`` runs grow,
 then fea on the directory it wrote (the reference's run_all.slurm flow);
+``--scan`` runs the ramp with device-resident records (``run_ramp_scan``,
+cut at full fracture) and writes the same files;
 ``sweep`` times the 3 solvers x 5 preconditioners over the ramp of a
 results directory's mesh and writes ``runtime_results.csv`` and its
 ``_meta.json``. The CSVs are the JAX package's contracts. Without
@@ -105,7 +107,7 @@ def cmd_grow(args) -> str:
 
 def cmd_fea(args) -> str:
     from .config import FeaConfig, save_run_configs, tuned_fea_config
-    from .fea import run_ramp
+    from .fea import run_ramp, run_ramp_scan, truncate_after_fracture
     from .io import (read_mesh_dir, write_fea_records, write_runtime,
                      write_solve_runtimes)
 
@@ -125,7 +127,11 @@ def cmd_fea(args) -> str:
            else FeaConfig(**overrides))
     print(f"FEA on {args.results_dir}: {coords.shape[0]} nodes, "
           f"{conn.shape[0]} elements, device {device}")
-    res = run_ramp(coords, conn, cfg, device=device)
+    if args.scan:
+        res = truncate_after_fracture(
+            run_ramp_scan(coords, conn, cfg, device=device))
+    else:
+        res = run_ramp(coords, conn, cfg, device=device)
     fea_dir = os.path.join(args.results_dir, "fea_results")
     write_fea_records(fea_dir, res.stress_record, res.active_record,
                       res.disp_record, res.force_disp,
@@ -193,6 +199,9 @@ def build_parser() -> argparse.ArgumentParser:
         g.add_argument("--grip", type=float, default=None)
         g.add_argument("--disp-max", type=float, default=None)
         g.add_argument("--f64", action="store_true")
+        g.add_argument("--scan", action="store_true",
+                       help="run the ramp with device-resident records, "
+                            "fetched once at the end")
         g.add_argument("--preset", choices=("fast", "reference"),
                        default="fast",
                        help="solver preset: 'fast' = chain operator + tree "

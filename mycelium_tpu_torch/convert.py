@@ -17,15 +17,15 @@ import torch
 
 from .fea.chain import ChainPlan, jump_csr
 from .fea.elements import ElementGeometry
-from .fea.model import DTYPES, FeaModel
+from .fea.model import DTYPES, FeaModel, with_tree_kernel
 from .fea.tree_factor import (FastFactorData, FastMeta, TreeFactor,
                               TreeMeta, TreePlan)
 from .growth.neighbors import SegGrid, grid_dims
 from .growth.state import DTYPES as GROWTH_DTYPES
 from .growth.state import GrowthState
 
-_MODEL_FIELDS = ("coords", "conn", "incident", "sign", "top_nodes",
-                 "bot_nodes", "free_nodes")
+_MODEL_FIELDS = ("coords", "conn", "incident", "sign", "neighbor",
+                 "top_nodes", "bot_nodes", "free_nodes")
 _GEOM_FIELDS = ("n", "length", "k_ax", "k_bd")
 _CHAIN_FIELDS = ("perm", "inv_perm", "chain_elem", "chain_n", "chain_kax",
                  "chain_kbd", "jump_elem", "jump_n", "jump_kax", "jump_kbd",
@@ -112,13 +112,14 @@ def model_from_jax(arrays: dict, cfg, device) -> FeaModel:
                     bool(x) for x in a["tree_fast.meta.level_left_fill"]),
                 left_is_chain_shift=bool(
                     a["tree_fast.meta.left_is_chain_shift"])))
-    return FeaModel(
+    return with_tree_kernel(FeaModel(
         coords=f(a["coords"]), conn=i(a["conn"]),
         geom=ElementGeometry(**{k: f(a[f"geom.{k}"]) for k in _GEOM_FIELDS}),
         incident=i(a["incident"]), sign=f(a["sign"]),
+        neighbor=i(a["neighbor"]),
         top_nodes=b(a["top_nodes"]),
         bot_nodes=b(a["bot_nodes"]), free_nodes=b(a["free_nodes"]),
-        chain=chain, tree=tree, tree_fast=tree_fast)
+        chain=chain, tree=tree, tree_fast=tree_fast))
 
 
 def _halo_rows(steps: int) -> int:

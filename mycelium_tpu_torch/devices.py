@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -17,3 +19,18 @@ def resolve(device=DEFAULT_DEVICE) -> torch.device:
             "device='cpu' (--device cpu) to run the plain PyTorch path on "
             "the host instead")
     return dev
+
+
+def moved(obj, device):
+    """A copy of ``obj`` with every tensor in it on ``device``: tensors,
+    dataclasses of tensors (the plans and tables) and tuples or lists of
+    them; anything else is returned as it is."""
+    if torch.is_tensor(obj):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: moved(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj)})
+    if isinstance(obj, (list, tuple)) and not hasattr(obj, "_fields"):
+        return type(obj)(moved(x, device) for x in obj)
+    return obj

@@ -19,11 +19,9 @@ from .model import apply_stiffness
 def prescribed_values(model, dy_top: float, dy_bot: float) -> torch.Tensor:
     """(N, 3) field holding the BC values: grip nodes move (0, ±dy, 0),
     free nodes hold zero."""
-    zero = torch.zeros((), dtype=model.dtype, device=model.device)
-    top = torch.tensor(dy_top, dtype=model.dtype, device=model.device)
-    bot = torch.tensor(dy_bot, dtype=model.dtype, device=model.device)
-    uy = torch.where(model.top_nodes, top, zero) \
-        + torch.where(model.bot_nodes, bot, zero)
+    # masks times Python scalars: no host-to-device copy, so no host sync
+    uy = model.top_nodes.to(model.dtype) * dy_top \
+        + model.bot_nodes.to(model.dtype) * dy_bot
     z = torch.zeros_like(uy)
     return torch.stack([z, uy, z], dim=1)
 

@@ -13,10 +13,11 @@ operator is the K1 matvec, the preconditioner one of
   solvers other than cg; cg + coarse runs the whole-solve kernel K5);
 - block_jacobi, jacobi (point-Jacobi), none;
 
-and the solver is cfg.solver. The reference runs the hybrid only above its
-VMEM gate; the port runs it at every mesh size. The model's dtype is kept
-throughout: float32 on the card (the kernels are float32-only), float64
-for the CPU tests.
+and the solver is cfg.solver. cg + tree comes here only on a model that
+cannot run the whole-solve kernel K6 (``model.tree_kernel`` false: float64,
+or past the kernel's memory guard). The model's dtype is kept throughout:
+float32 on the card (the kernels are float32-only), float64 for the CPU
+tests.
 """
 
 from __future__ import annotations

@@ -15,7 +15,7 @@ moved to one device; per-step "assembly" is masking fractured elements.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -24,7 +24,8 @@ from ..devices import DEFAULT_DEVICE, resolve
 from .chain import ChainPlan, build_chain_plan, greedy_path_cover
 from .elements import ElementGeometry, element_forces, element_geometry_host
 from .tree import build_tree_schedule, element_k3
-from .tree_factor import (FastFactorData, TreePlan, build_fast_factor_data,
+from .tree_factor import (FastFactorData, TreeKernelTables, TreePlan,
+                          build_fast_factor_data, build_tree_kernel_tables,
                           build_tree_plan)
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -39,12 +40,19 @@ class FeaModel:
     # incident[i, d]; padding points at the sentinel element E, sign 0
     incident: torch.Tensor     # (N, deg_max) int64
     sign: torch.Tensor         # (N, deg_max)
+    neighbor: torch.Tensor     # (N, deg_max) int64 other end (sentinel N)
     top_nodes: torch.Tensor    # (N,) bool grip masks
     bot_nodes: torch.Tensor
     free_nodes: torch.Tensor   # (N,) bool ~top & ~bot
     chain: ChainPlan
     tree: TreePlan
     tree_fast: FastFactorData | None   # None when no node is free
+    tree_tables: TreeKernelTables | None = None   # K6's index tables
+    # the model can run the whole-solve kernel K6 (float32, a forest whose
+    # tables K6 can read, within the card's memory): a fact of the model,
+    # whatever configuration built it. fea/solve.py::solve_route sends
+    # cg + tree on the chain operator there; False leaves it on the hybrid
+    tree_kernel: bool = False
 
     @property
     def n_nodes(self) -> int:
@@ -69,8 +77,7 @@ class FeaModel:
 
 def _build_incidence(conn: np.ndarray, n_nodes: int):
     """Host-side ELL tables (static per mesh): incident element, sign, and
-    the other endpoint (the reference's device anchoring reads the last;
-    the port anchors on the host)."""
+    the other endpoint (read by the device-side grip reachability)."""
     n_elems = conn.shape[0]
     deg = np.zeros(n_nodes, dtype=np.int64)
     np.add.at(deg, conn[:, 0], 1)
@@ -134,7 +141,7 @@ def build_model(coords: np.ndarray, conn: np.ndarray, cfg,
     top = top & ~bot
     free = ~(top | bot)
 
-    incident, sign, _ = _build_incidence(conn_np, n_nodes)
+    incident, sign, neighbor = _build_incidence(conn_np, n_nodes)
     n_host, length, k_ax, k_bd = element_geometry_host(coords, conn_np, cfg)
 
     schedule = build_tree_schedule(conn_np, n_nodes, free,
@@ -158,14 +165,67 @@ def build_model(coords: np.ndarray, conn: np.ndarray, cfg,
     def b(a):
         return torch.as_tensor(np.asarray(a, bool), device=device)
 
-    return FeaModel(
+    model = FeaModel(
         coords=f(coords), conn=i(conn_np),
         geom=ElementGeometry(n=f(n_host), length=f(length), k_ax=f(k_ax),
                              k_bd=f(k_bd)),
-        incident=i(incident), sign=f(sign),
+        incident=i(incident), sign=f(sign), neighbor=i(neighbor),
         top_nodes=b(top), bot_nodes=b(bot), free_nodes=b(free),
         chain=ChainPlan.from_host(chain_host, dtype, device),
         tree=tree_plan, tree_fast=tree_fast)
+    return with_tree_kernel(model)
+
+
+def with_tree_kernel(model: FeaModel) -> FeaModel:
+    """``model`` with the whole-solve tree kernel's index tables (where its
+    forest has levels) and whether it can run that kernel."""
+    if model.tree.meta.level_steps:
+        model = replace(model,
+                        tree_tables=build_tree_kernel_tables(model.tree))
+    return replace(model, tree_kernel=tree_kernel_fits(model))
+
+
+# The one memory guard of the whole-solve tree kernel K6: the bytes the
+# kernel touches (its tables, the factorization's coefficients and state,
+# the CG vectors). It is not a residency limit and no speed threshold:
+# measured against the hybrid within one call on an H100 (chip_smoke.py,
+# profile_fea.py), K6 was 6-13x faster from 3 MB to 999 MB (22k to 3M DOF),
+# well past the 50 MB L2, because the hybrid is bound by its ~2,000 launches
+# and host reads, not by bytes. Beyond what was measured the model stays on
+# the hybrid, whose factorization is computed level by level.
+TREE_KERNEL_MAX_BYTES = 1000 * 1000 * 1000
+# K6's apply window must fit a block's shared memory (227 KB on the H100)
+TREE_KERNEL_MAX_SMEM = 227 * 1024
+
+
+def tree_kernel_bytes(model: FeaModel) -> int:
+    """Bytes of K6's inputs, tables and scratch for one solve of ``model``
+    (``kernels.tree_cg.work_floats`` and the tensors it is handed)."""
+    from ..kernels.tree_cg import work_floats
+    tk, cp = model.tree_tables, model.chain
+    n, S, P = model.n_nodes, model.tree.n_slots, model.tree.n_paths
+    tables = (cp.chain_n, cp.chain_kax, cp.chain_kbd, cp.jump_n, cp.jump_kax,
+              cp.jump_kbd, cp.ja, cp.jb, cp.jump_ptr, cp.jump_ent, tk.lvl,
+              tk.left_fill, tk.first_path, tk.last_path, tk.fg, tk.lg,
+              tk.has_fill, tk.att_tgt, tk.att_fill, tk.att_flip, tk.att_ptr,
+              tk.att_ent)
+    nbytes = sum(t.numel() * t.element_size() for t in tables)
+    # uk, x0, x (3N each), freem, cact (N), jact (Jp), d9, bel (9S), katt
+    per_solve = 11 * n + cp.ja.shape[0] + 18 * S + 18 * P
+    return nbytes + 4 * (per_solve + work_floats(n, S, P, tk))
+
+
+def tree_kernel_fits(model: FeaModel) -> bool:
+    """Whether this model can run K6: a forest with levels whose fills and
+    attachments point from earlier levels to later, float32, and the
+    kernel's bytes and shared-memory window within the card's. Which solves
+    go there is the solve-time configuration's matter (``solve_route``)."""
+    from ..kernels.tree_cg import smem_bytes
+    tk = model.tree_tables
+    return bool(tk is not None and tk.ordered
+                and model.dtype == torch.float32
+                and smem_bytes(tk.max_steps) <= TREE_KERNEL_MAX_SMEM
+                and tree_kernel_bytes(model) <= TREE_KERNEL_MAX_BYTES)
 
 
 def apply_stiffness(model: FeaModel, u, active, operator: str = "ell"):

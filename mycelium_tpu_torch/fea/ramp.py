@@ -1,6 +1,7 @@
 """The quasi-static tensile pull test (port of ``mycelium_tpu/fea/ramp.py``:
-``RampResult``, ``ramp_step``, ``post_solve``, ``anchored_mask_host`` and
-the ``run_ramp`` loop).
+``RampResult``, ``ramp_step``, ``post_solve``, ``anchored_mask_host``,
+``anchored_mask_device``, the ``run_ramp`` loop and the device-resident
+loops ``run_ramp_async`` and ``run_ramp_scan``).
 
 40-step displacement ramp, dy = ±displacement_max·step/(n_steps−1): solve
 under grip BCs, reactions with the pre-BC stiffness, axial strains on the
@@ -8,8 +9,18 @@ undeformed geometry, deactivate elements with |strain| > max_strain,
 record force–displacement, stop early once the network has fully
 fractured. The tree-PC factorization (and the coarse inverse it carries
 with tree_coarse_weight > 0) is reused across steps whose active mask did
-not change; a fracture event refreshes the grip reachability (on
-the host, scipy connected components) and the factorization.
+not change; a fracture event refreshes the grip reachability (on the
+device: ``tree_anchored`` where the model has a forest, else
+``anchored_mask_device``) and the factorization. Solves that go to the
+whole-solve tree kernel (``solve_route`` 'tree_cg') factor inside their launch,
+so no factorization is kept for them.
+
+``run_ramp`` reads the step's records on the host every step.
+``run_ramp_async`` and ``run_ramp_scan`` keep them in preallocated device
+tensors written by step index and fetch them once at the end; what they
+still read on the host each step is the solve's three stats (one read, in
+``solve_displacement``) and one ``changed`` flag, plus one flag a trip of
+the reachability fixpoint after a fracture.
 """
 
 from __future__ import annotations
@@ -23,7 +34,7 @@ import torch
 from ..devices import DEFAULT_DEVICE
 from .elements import element_strain
 from .model import FeaModel, apply_stiffness, build_model
-from .solve import compute_tree_factor, solve_displacement
+from .solve import compute_tree_factor, solve_displacement, solve_route
 
 
 class RampResult(NamedTuple):
@@ -67,6 +78,38 @@ def anchored_mask_host(conn: np.ndarray, active: np.ndarray,
     return np.isin(labels, np.unique(labels[grip]))
 
 
+def anchored_mask_device(model: FeaModel, active):
+    """Grip reachability on the device by monotone label propagation over
+    the ELL neighbour table: O(graph diameter) sweeps, each one gather and
+    one host read of the ``changed`` flag."""
+    grip = model.top_nodes | model.bot_nodes
+    false1 = torch.zeros((1,), dtype=torch.bool, device=grip.device)
+    link_ok = torch.cat([active.to(torch.bool), false1])[model.incident]
+    anch = grip
+    while True:
+        nb = torch.cat([anch, false1])[model.neighbor] & link_ok
+        new = grip | nb.any(dim=1)
+        if not bool((new != anch).any()):
+            return new
+        anch = new
+
+
+def refresh_anchored(model: FeaModel, active):
+    """The grip reachability of ``active`` on the model's device: the
+    tree-accelerated sweep where the model has a forest."""
+    if model.tree_fast is not None:
+        from .tree_factor import tree_anchored
+        return tree_anchored(model.tree, model, active)
+    return anchored_mask_device(model, active)
+
+
+def keeps_factor(model: FeaModel, cfg) -> bool:
+    """Whether the ramp keeps a tree-PC factorization between steps: the
+    tree preconditioner on every route but the whole-solve kernel, which
+    factors inside its launch."""
+    return cfg.precond == "tree" and solve_route(model, cfg) != "tree_cg"
+
+
 def post_solve(model: FeaModel, cfg, u, active):
     """Reactions -> stress -> fracture for a solved displacement field."""
     f_react = apply_stiffness(model, u, active,
@@ -99,9 +142,6 @@ def run_ramp(coords, conn, cfg, device=DEFAULT_DEVICE,
     if model is None:
         model = build_model(coords, conn, cfg, device)
     dtype, dev = model.dtype, model.device
-    conn_np = model.conn.cpu().numpy()
-    grip_np = (model.top_nodes | model.bot_nodes).cpu().numpy()
-
     active_np = np.ones(model.n_elems, bool)
     active = torch.ones(model.n_elems, dtype=torch.bool, device=dev)
     u_prev = torch.zeros((model.n_nodes, 3), dtype=dtype, device=dev)
@@ -109,12 +149,8 @@ def run_ramp(coords, conn, cfg, device=DEFAULT_DEVICE,
     stress_rec, active_rec, disp_rec, fd_rec = [], [], [], []
     solve_secs, iters_rec = [], []
 
-    def anchored_for(act_np):
-        return torch.as_tensor(anchored_mask_host(conn_np, act_np, grip_np),
-                               device=dev)
-
-    anchored = anchored_for(active_np)
-    use_fac = cfg.precond == "tree"
+    anchored = refresh_anchored(model, active)
+    use_fac = keeps_factor(model, cfg)
     fac = compute_tree_factor(model, active, cfg, anchored) if use_fac \
         else None
 
@@ -142,7 +178,7 @@ def run_ramp(coords, conn, cfg, device=DEFAULT_DEVICE,
         if not np.array_equal(active_new_np, active_np):
             # fracture changed the topology: refresh grip reachability and
             # the tree-PC factorization
-            anchored = anchored_for(active_new_np)
+            anchored = refresh_anchored(model, active_new)
             if use_fac:
                 fac = compute_tree_factor(model, active_new, cfg, anchored)
         u_prev, active, active_np, prev_factor = \
@@ -158,3 +194,144 @@ def run_ramp(coords, conn, cfg, device=DEFAULT_DEVICE,
         solve_seconds=np.asarray(solve_secs),
         cg_iters=np.asarray(iters_rec, dtype=np.int64),
         total_seconds=time.time() - t0)
+
+
+def truncate_after_fracture(res: RampResult) -> RampResult:
+    """Cut records at the early-stop point ``run_ramp`` would have
+    produced: up to and including the step where the last element
+    fractured."""
+    n_active = res.active_record.sum(axis=1)
+    dead = np.nonzero(n_active == 0)[0]
+    n_rec = (dead[0] + 1) if len(dead) else len(n_active)
+    return RampResult(*(x[:n_rec] for x in res[:6]), res.total_seconds)
+
+
+def _check_status(status: np.ndarray, n_done: int) -> None:
+    """Raise if a step whose network was still alive did not converge.
+    status rows: [converged, active elements after, iterations, force]."""
+    conv = status[:n_done, 0] > 0
+    alive_before = np.concatenate([[1.0], status[:n_done - 1, 1]]) > 0
+    bad = np.nonzero(~conv & alive_before)[0]
+    if len(bad):
+        raise SolveDivergedError(
+            f"solver diverged at ramp step {int(bad[0]) + 1}")
+
+
+def _device_ramp(model: FeaModel, cfg, sync_every: int, early_stop: bool):
+    """The ramp with device-resident records: (stress, active, disp,
+    status) tensors of n_steps rows written by step index, the per-step
+    seconds (wall time between status reads spread over the steps between
+    them) and the number of steps run. The status rows are read on the
+    host every ``sync_every`` steps (0: only at the end), where the early
+    stop and the divergence check run."""
+    dtype, dev = model.dtype, model.device
+    n_steps = cfg.n_steps
+    use_fac = keeps_factor(model, cfg)
+    active = torch.ones(model.n_elems, dtype=torch.bool, device=dev)
+    u_prev = torch.zeros((model.n_nodes, 3), dtype=dtype, device=dev)
+    anchored = refresh_anchored(model, active)
+    fac = compute_tree_factor(model, active, cfg, anchored) if use_fac \
+        else None
+    stress_b = torch.zeros((n_steps, model.n_elems), dtype=dtype, device=dev)
+    active_b = torch.zeros((n_steps, model.n_elems), dtype=torch.bool,
+                           device=dev)
+    disp_b = torch.zeros((n_steps, 3 * model.n_nodes), dtype=dtype,
+                         device=dev)
+    # float64 rows: the force keeps every bit it has on the device, and the
+    # counts are exact
+    status_b = torch.zeros((n_steps, 4), dtype=torch.float64, device=dev)
+
+    secs = np.zeros((n_steps,))
+    chunk_lo, chunk_t0 = 0, time.time()
+
+    def close_chunk(hi):
+        nonlocal chunk_lo, chunk_t0
+        now = time.time()
+        if hi > chunk_lo:
+            secs[chunk_lo:hi] = (now - chunk_t0) / (hi - chunk_lo)
+        chunk_lo, chunk_t0 = hi, now
+
+    prev_factor = 0.0
+    done = 0
+    for step in range(n_steps):
+        dy_top, dy_bot = _step_factors(cfg, step)
+        factor = step / (n_steps - 1)
+        if cfg.warm_start and prev_factor > 0:
+            x0 = u_prev * (factor / prev_factor)
+        else:
+            x0 = torch.zeros_like(u_prev)
+        u, stress, active_new, total_force, iters, _, converged = ramp_step(
+            model, cfg, active, x0, dy_top, dy_bot, anchored, fac)
+        stress_b[step] = stress
+        active_b[step] = active_new
+        disp_b[step] = u.reshape(-1)
+        status_b[step, 0] = float(converged)
+        status_b[step, 1] = active_new.sum()
+        status_b[step, 2] = float(iters)
+        status_b[step, 3] = total_force
+        # the refresh is data-dependent: one flag a step
+        if bool((active_new != active).any()):
+            anchored = refresh_anchored(model, active_new)
+            if use_fac:
+                fac = compute_tree_factor(model, active_new, cfg, anchored)
+        u_prev, active, prev_factor = u, active_new, factor
+        done = step + 1
+        if sync_every > 0 and done % sync_every == 0 and done < n_steps:
+            status = status_b.cpu().numpy()
+            close_chunk(done)
+            _check_status(status, done)
+            if early_stop and status[done - 1, 1] == 0:
+                break
+    status = status_b.cpu().numpy()
+    close_chunk(done)
+    _check_status(status, done)
+    return stress_b, active_b, disp_b, status, secs, done
+
+
+def _device_result(model, cfg, bufs, t0) -> RampResult:
+    stress_b, active_b, disp_b, status, secs, done = bufs
+    factors = np.arange(done) / (cfg.n_steps - 1)
+    fd = np.stack([2 * cfg.displacement_max * factors, status[:done, 3]],
+                  axis=1)
+    return RampResult(
+        stress_record=stress_b[:done].cpu().numpy(),
+        active_record=active_b[:done].cpu().numpy(),
+        disp_record=disp_b[:done].cpu().numpy(),
+        force_disp=fd,
+        solve_seconds=secs[:done],
+        cg_iters=status[:done, 2].astype(np.int64),
+        total_seconds=time.time() - t0)
+
+
+def run_ramp_async(coords, conn, cfg, device=DEFAULT_DEVICE,
+                   model: Optional[FeaModel] = None,
+                   sync_every: int = 8) -> RampResult:
+    """The ramp with device-resident records: the per-step record pulls
+    of ``run_ramp`` are replaced by one status read every ``sync_every``
+    steps and one record fetch at the end. The early stop and the
+    divergence check run at that granularity, and the records are cut at
+    the full-fracture step as ``run_ramp`` cuts them. ``solve_seconds`` is
+    chunk-amortised: each sync chunk's wall time spread evenly over its
+    steps."""
+    t0 = time.time()
+    if model is None:
+        model = build_model(coords, conn, cfg, device)
+    bufs = _device_ramp(model, cfg, max(int(sync_every), 1), True)
+    return truncate_after_fracture(_device_result(model, cfg, bufs, t0))
+
+
+def run_ramp_scan(coords, conn, cfg, device=DEFAULT_DEVICE,
+                  model: Optional[FeaModel] = None) -> RampResult:
+    """The ramp with no early stop and no status read before the end:
+    every step runs (after full fracture the remaining solves are trivial
+    identity solves) and ``solve_seconds`` is NaN, as in the reference.
+    Cut the records with ``truncate_after_fracture``. Every model and
+    route runs the same loop: the reference sends its large models to
+    ``run_ramp`` because one compiled program for all steps is costly
+    there, and no such program exists here."""
+    t0 = time.time()
+    if model is None:
+        model = build_model(coords, conn, cfg, device)
+    bufs = _device_ramp(model, cfg, 0, False)
+    res = _device_result(model, cfg, bufs, t0)
+    return res._replace(solve_seconds=np.full((cfg.n_steps,), np.nan))

@@ -9,9 +9,13 @@ stays on the device. The routes of ``solve_displacement``:
 
 - operator 'chain', cg + coarse: the whole-solve kernel K5
   (``fea/chain_solve.py``), one launch per solve;
+- operator 'chain', cg + tree on a model that can run it
+  (``model.tree_kernel``: float32, within the kernel's memory guard): the
+  whole-solve tree kernel K6 (``fea/tree_solve.py``), one launch per
+  solve, no coarse stage;
 - operator 'chain', any other combination: the chain path
-  (``fea/hybrid.py``), with K1 as its operator on the card; cg + tree is
-  the reference's hybrid;
+  (``fea/hybrid.py``), with K1 as its operator on the card; cg + tree on
+  a model that cannot run K6 is the reference's hybrid;
 - operator 'ell' or 'scatter': the node-space path below.
 
 Unlike the reference (``solve.py:574-579``, fault C7 in ROADMAP), no
@@ -394,6 +398,22 @@ def _node_solve(model, active, dy_top, dy_bot, x0, cfg, anchored,
                                **solver_kwargs(cfg))
 
 
+def solve_route(model, cfg) -> str:
+    """Which path ``solve_displacement`` takes: 'node' (operator 'ell' or
+    'scatter'), 'chain_cg' (K5: cg + coarse), 'tree_cg' (K6: cg + tree on a
+    model that can run it, ``model.tree_kernel``) or 'hybrid' (the chain
+    path, every other combination). The configuration is the solve's own:
+    which one built the model does not matter."""
+    check_config(cfg)
+    if cfg.operator != "chain":
+        return "node"
+    if cfg.solver == "cg" and cfg.precond == "coarse":
+        return "chain_cg"
+    if cfg.solver == "cg" and cfg.precond == "tree" and model.tree_kernel:
+        return "tree_cg"
+    return "hybrid"
+
+
 def solve_displacement(model, active, dy_top: float, dy_bot: float, x0,
                        cfg, anchored=None,
                        tree_factor_val=None) -> SolveResult:
@@ -403,17 +423,20 @@ def solve_displacement(model, active, dy_top: float, dy_bot: float, x0,
     elements; the others are pinned to zero (the direct solver's answer).
     ``tree_factor_val`` is a precomputed compute_tree_factor result for the
     same (active, anchored), read by the tree preconditioner."""
-    check_config(cfg)
-    if cfg.operator != "chain":
+    route = solve_route(model, cfg)
+    if route == "node":
         return _node_solve(model, active, dy_top, dy_bot, x0, cfg,
                            anchored, tree_factor_val)
-    if cfg.solver == "cg" and cfg.precond == "coarse":
+    if route == "chain_cg":
         from .chain_solve import chain_cg_solve
         return chain_cg_solve(model, active, dy_top, dy_bot, x0, cfg,
                               anchored)
-    # cg + tree runs the hybrid at every size, the coarse weight included;
-    # the reference's whole-solve tree kernel, which it picks below its
-    # VMEM gate and which has no coarse stage, is not ported yet
+    if route == "tree_cg":
+        # the whole-solve tree kernel factors inside its launch and has no
+        # coarse stage: tree_factor_val and tree_coarse_weight are not read
+        from .tree_solve import tree_cg_solve
+        return tree_cg_solve(model, active, dy_top, dy_bot, x0, cfg,
+                             anchored)
     from .hybrid import chain_path_solve
     return chain_path_solve(model, active, dy_top, dy_bot, x0, cfg, anchored,
                             tree_factor_val=tree_factor_val)

@@ -390,54 +390,64 @@ def left_couplings(plan: TreePlan, fast: FastFactorData, active,
     return -fast.left_k3 * (la & fc & fprev).to(fast.left_k3.dtype)
 
 
-def tree_factor_fast(plan: TreePlan, fast: FastFactorData, cplan,
-                     active, free_now, free_chain, reg: float, conn,
-                     chain_act_b=None, jump_act_b=None) -> TreeFactor:
-    """The numeric factorization under the unified ordering. Every PCR
-    level goes through ``kernels.pcr_factor`` (K2 on CUDA), which returns
-    the level's coefficients and its 6-column corner solve together."""
-    meta = plan.meta
-    k3 = plan.k3
-    S_tot = plan.n_slots
-    P_tot = plan.n_paths
-    dtype = k3.dtype
-    E = conn.shape[0]
-
-    D_g = chain_tree_diag(plan, fast, cplan, active, free_chain, reg,
-                          chain_act_b, jump_act_b)[:, :S_tot]
-    B_elem = left_couplings(plan, fast, active, free_chain, E, chain_act_b)
+def attachment_couplings(plan: TreePlan, active, free_now, conn, idx):
+    """-k3 of the elements ``idx`` (any shape, sentinel E), masked by
+    active, forest membership, both ends free and not a self-loop:
+    idx.shape + (3, 3)."""
     act_pad = _pad1(active.to(torch.bool), False)
     conn_pad = _pad1(conn, 0)
     tree_pad = _pad1(plan.tree_edge, False)
     free_pad = _pad1(free_now, False)
-    k3_pad = _pad1(k3, 0.0)
+    k3_pad = _pad1(plan.k3, 0.0)
+    flat = idx.reshape(-1)
+    c = conn_pad[flat]
+    m = (act_pad[flat] & tree_pad[flat] & free_pad[c[:, 0]]
+         & free_pad[c[:, 1]] & (c[:, 0] != c[:, 1]))
+    out = -k3_pad[flat] * m[:, None, None].to(plan.k3.dtype)
+    return out.reshape(tuple(idx.shape) + (3, 3))
 
-    def k_att(idx):
-        flat = idx.reshape(-1)
-        c = conn_pad[flat]
-        m = (act_pad[flat] & tree_pad[flat] & free_pad[c[:, 0]]
-             & free_pad[c[:, 1]] & (c[:, 0] != c[:, 1]))
-        out = -k3_pad[flat] * m[:, None, None].to(dtype)
-        return out.reshape(tuple(idx.shape) + (3, 3))
 
-    fill_B = k3.new_zeros((P_tot + 1, 9))                  # row-major
-    dacc = k3.new_zeros((9, S_tot + 1))
+def tree_factor_inputs(plan: TreePlan, fast: FastFactorData, cplan,
+                       active, free_now, free_chain, reg: float, conn,
+                       chain_act_b=None, jump_act_b=None):
+    """The per-solve numeric inputs of the factorization: the (9, S) forest
+    diagonal, the (9, S) left-edge element couplings and the (P, 2, 3, 3)
+    attachment element couplings."""
+    S_tot = plan.n_slots
+    D_g = chain_tree_diag(plan, fast, cplan, active, free_chain, reg,
+                          chain_act_b, jump_act_b)[:, :S_tot]
+    B_elem = left_couplings(plan, fast, active, free_chain, conn.shape[0],
+                            chain_act_b)
+    katt = attachment_couplings(plan, active, free_now, conn, plan.att_elem)
+    return D_g, B_elem, katt
+
+
+def tree_factor_levels(plan: TreePlan, D_g, B_elem, katt, n_levels: int,
+                       level_left_fill=None):
+    """The first ``n_levels`` levels' PCR factorization from
+    ``tree_factor_inputs``: every level goes through ``kernels.pcr_factor``
+    (K2 on CUDA), which returns the level's coefficients and its 6-column
+    corner solve together. Returns (alphas, betas, dinvs, att_b, fill_B,
+    dacc); ``level_left_fill[li]`` False skips a level's fill gather."""
+    meta = plan.meta
+    k3 = plan.k3
+    fill_B = k3.new_zeros((plan.n_paths + 1, 9))            # row-major
+    dacc = k3.new_zeros((9, plan.n_slots + 1))
 
     alphas, betas, dinvs, attb = [], [], [], []
-    L = n_pcr_levels(meta)
-    for li in range(L):
+    for li in range(n_levels):
         s0, s1 = meta.level_offsets[li], meta.level_offsets[li + 1]
         p0, p1 = meta.path_offsets[li], meta.path_offsets[li + 1]
         D_l = D_g[:, s0:s1] + dacc[:, s0:s1]
         B_l = B_elem[:, s0:s1]
-        if fast.meta.level_left_fill[li]:
+        if level_left_fill is None or level_left_fill[li]:
             bf = fill_B[plan.left_fill[s0:s1]]             # (S_l, 9)
             flip = plan.left_fill_flip[s0:s1]
             B_l = B_l + torch.where(flip, bf[:, TRANSPOSE9].T, bf.T)
 
         fg = plan.first_gpos[p0:p1] - s0
         lg = plan.last_gpos[p0:p1] - s0
-        ab = k_att(plan.att_elem[p0:p1]) \
+        ab = katt[p0:p1] \
             + fill_B[plan.att_fill[p0:p1]].reshape(-1, 2, 3, 3)
         ab = torch.where(plan.att_flip[p0:p1, :, None, None],
                          ab.transpose(-1, -2), ab)
@@ -463,12 +473,29 @@ def tree_factor_fast(plan: TreePlan, fast: FastFactorData, cplan,
         fill_B[p0:p1] = fb.reshape(-1, 9)
 
     att_b = torch.cat(attb) if attb else k3.new_zeros((0, 2, 3, 3))
+    return tuple(alphas), tuple(betas), tuple(dinvs), att_b, fill_B, dacc
+
+
+def tree_factor_fast(plan: TreePlan, fast: FastFactorData, cplan,
+                     active, free_now, free_chain, reg: float, conn,
+                     chain_act_b=None, jump_act_b=None) -> TreeFactor:
+    """The numeric factorization under the unified ordering: the first
+    meta.n_pcr levels by PCR, the rest as one dense junction inverse."""
+    meta = plan.meta
+    S_tot = plan.n_slots
+    D_g, B_elem, katt = tree_factor_inputs(
+        plan, fast, cplan, active, free_now, free_chain, reg, conn,
+        chain_act_b, jump_act_b)
+    L = n_pcr_levels(meta)
+    alphas, betas, dinvs, att_b, fill_B, dacc = tree_factor_levels(
+        plan, D_g, B_elem, katt, L, fast.meta.level_left_fill)
     t0 = meta.level_offsets[L]
-    sinv = (_dense_tail_factor(plan, D_g[:, t0:S_tot], dacc[:, t0:S_tot],
-                               k_att(plan.dense_eid), fill_B)
-            if S_tot > t0 else None)
-    return TreeFactor(alphas=tuple(alphas), betas=tuple(betas),
-                      dinvs=tuple(dinvs), att_b=att_b, sinv=sinv)
+    sinv = (_dense_tail_factor(
+        plan, D_g[:, t0:S_tot], dacc[:, t0:S_tot],
+        attachment_couplings(plan, active, free_now, conn, plan.dense_eid),
+        fill_B) if S_tot > t0 else None)
+    return TreeFactor(alphas=alphas, betas=betas, dinvs=dinvs, att_b=att_b,
+                      sinv=sinv)
 
 
 def tree_apply_chain_planes(plan: TreePlan, factor: TreeFactor, rp):
@@ -516,3 +543,156 @@ def tree_apply_chain_planes(plan: TreePlan, factor: TreeFactor, rp):
                          factor.dinvs[li], z)
         u_all[:, s0:s1] = ys[li] - corr
     return u_all[:, :S_tot]
+
+
+# ---------------------------------------------------------------------------
+# index tables of the whole-solve kernel K6 (kernels/tree_cg.py)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TreeKernelTables:
+    """The plan as K6 reads it (built once per mesh): int32 index arrays
+    with -1 for "none", entry 2·path + side for a path's two attachments,
+    and a CSR of the attachment entries by junction slot, each slot's
+    entries in the order (level, side, path) in which a sequential
+    ``index_add_`` over the levels adds them."""
+    lvl: torch.Tensor           # (4, L+1) int64: slot offsets, path offsets,
+                                # rounds, coefficient offsets (floats)
+    left_fill: torch.Tensor     # (S,) 2·producing path + flip, -1
+    first_path: torch.Tensor    # (S,) the path that starts at the slot, -1
+    last_path: torch.Tensor     # (S,)
+    fg: torch.Tensor            # (P,) first slot
+    lg: torch.Tensor            # (P,) last slot
+    has_fill: torch.Tensor      # (P,)
+    att_tgt: torch.Tensor       # (2P,) junction slot, S for none
+    att_fill: torch.Tensor      # (2P,) producing path, -1
+    att_flip: torch.Tensor      # (2P,)
+    att_ptr: torch.Tensor       # (S+1,)
+    att_ent: torch.Tensor       # (n_att,)
+    smax: int                   # slots of the largest level
+    coef_floats: int            # sum over levels of rounds · 9 · slots
+    max_steps: int
+    ordered: bool               # every fill and attachment points from an
+                                # earlier level to a later one
+
+
+def build_tree_kernel_tables(plan: TreePlan) -> TreeKernelTables:
+    meta = plan.meta
+    L = len(meta.level_steps)
+    S, P = plan.n_slots, plan.n_paths
+    dev = plan.slots.device
+    lo = np.asarray(meta.level_offsets, np.int64)
+    po = np.asarray(meta.path_offsets, np.int64)
+    steps = np.asarray(meta.level_steps + (0,), np.int64)
+    sizes = np.diff(lo)
+    coef = np.concatenate([[0], np.cumsum(steps[:L] * 9 * sizes)])
+    slot_level = np.repeat(np.arange(L), sizes)
+    path_level = np.repeat(np.arange(L), np.diff(po))
+
+    def host(t):
+        return t.cpu().numpy()
+
+    lf, lff = host(plan.left_fill), host(plan.left_fill_flip)
+    left_fill = np.where(lf < P, 2 * lf + lff, -1)
+    fg, lg = host(plan.first_gpos), host(plan.last_gpos)
+    first_path = np.full(S, -1, np.int64)
+    last_path = np.full(S, -1, np.int64)
+    first_path[fg] = np.arange(P)
+    last_path[lg] = np.arange(P)
+    tgt = host(plan.att_tgt).reshape(-1)
+    af = host(plan.att_fill).reshape(-1)
+    att_fill = np.where(af < P, af, -1)
+    ent = np.nonzero(tgt < S)[0]                  # entry = 2·path + side
+    # per junction slot: by level (path index order), then side, then path
+    key = np.lexsort((ent >> 1, ent & 1, path_level[ent >> 1], tgt[ent]))
+    att_ent = ent[key]
+    att_ptr = np.zeros(S + 1, np.int64)
+    att_ptr[1:] = np.cumsum(np.bincount(tgt[ent], minlength=S))
+    has_lf = left_fill >= 0
+    ordered = bool(
+        np.all(path_level[lf[has_lf]] < slot_level[has_lf])
+        and np.all(path_level[af[af < P]]
+                   < path_level[np.nonzero(af < P)[0] >> 1])
+        and np.all(slot_level[tgt[ent]] > path_level[ent >> 1])
+        and len(np.unique(fg)) == P and len(np.unique(lg)) == P)
+
+    def i32(a):
+        return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
+
+    return TreeKernelTables(
+        lvl=torch.as_tensor(np.stack([lo, po, steps, coef]), device=dev),
+        left_fill=i32(left_fill), first_path=i32(first_path),
+        last_path=i32(last_path), fg=i32(fg), lg=i32(lg),
+        has_fill=i32(host(plan.has_fill)), att_tgt=i32(tgt),
+        att_fill=i32(att_fill), att_flip=i32(host(plan.att_flip).reshape(-1)),
+        att_ptr=i32(att_ptr), att_ent=i32(att_ent),
+        smax=int(sizes.max()) if L else 0, coef_floats=int(coef[-1]),
+        max_steps=int(steps.max()), ordered=ordered)
+
+
+# ---------------------------------------------------------------------------
+# grip reachability accelerated by the tree hierarchy
+# ---------------------------------------------------------------------------
+
+def _span_or(seg, left_act, steps: int):
+    """OR-propagate boolean seg values along contiguous active spans of a
+    concatenated-path array, in ``steps`` doubling rounds. left_act[i] marks
+    the edge (i-1, i) active; propagation never crosses inactive edges or
+    path boundaries (left_act is False there)."""
+    conn = torch.roll(left_act, -1)          # conn[i] = left_act[i+1]
+    s = 1
+    for _ in range(steps):
+        seg = seg | (torch.roll(seg, -s) & conn)
+        seg = seg | (torch.roll(seg, s) & torch.roll(conn, s))
+        conn = conn & torch.roll(conn, -s)
+        s *= 2
+    return seg
+
+
+def tree_anchored(plan: TreePlan, model, active):
+    """Nodes reachable from a grip through active elements (port of
+    ``mycelium_tpu/fea/tree_jax.py::tree_anchored``), on the model's device.
+
+    Each fixpoint trip is one plain neighbour sweep (grip seeding and cycle
+    edges) plus a sweep in slot space that hops a whole path in
+    log2(longest path) doubling rounds and crosses the attachments, so a
+    handful of trips do where the plain sweep (``anchored_mask_device``)
+    needs the graph's diameter. Fill edges count as inactive: only the hop
+    length shrinks. One host read a trip (the ``changed`` flag)."""
+    meta = plan.meta
+    L = len(meta.level_steps)
+    grip = model.top_nodes | model.bot_nodes
+    S_tot = plan.n_slots
+    false1 = torch.zeros((1,), dtype=torch.bool, device=grip.device)
+    act_pad = torch.cat([active.to(torch.bool), false1])
+    link_ok = act_pad[model.incident]                     # (N, deg)
+    left_act = act_pad[plan.left_elem]                    # (S,)
+    att_act = act_pad[plan.att_elem]                      # (P, 2)
+    tgt = plan.att_tgt
+    anch = grip
+    while True:
+        anch_pad = torch.cat([anch, false1])
+        nb = anch_pad[model.neighbor] & link_ok
+        anch1 = anch | nb.any(dim=1) | grip
+        sv = torch.cat([anch1[plan.slots], false1])       # (S+1,)
+        for li in range(L):
+            s0, s1 = meta.level_offsets[li], meta.level_offsets[li + 1]
+            p0, p1 = meta.path_offsets[li], meta.path_offsets[li + 1]
+            la = left_act[s0:s1]
+            sv[s0:s1] = _span_or(sv[s0:s1], la, meta.level_steps[li])
+            for side, ends in ((0, plan.first_gpos[p0:p1]),
+                               (1, plan.last_gpos[p0:p1])):
+                t = tgt[p0:p1, side]
+                aa = att_act[p0:p1, side]
+                sv[ends] = sv[ends] | (sv[t] & aa)
+                # several paths may share a junction: count, then test
+                hit = torch.zeros(S_tot + 1, dtype=torch.int32,
+                                  device=sv.device)
+                hit.index_add_(0, t, (sv[ends] & aa).to(torch.int32))
+                sv = sv | (hit > 0)
+            sv[s0:s1] = _span_or(sv[s0:s1], la, meta.level_steps[li])
+        anch2 = anch1.clone()
+        anch2[plan.slots] = anch2[plan.slots] | sv[:S_tot]
+        if not bool((anch2 != anch).any()):               # the host read
+            return anch2
+        anch = anch2

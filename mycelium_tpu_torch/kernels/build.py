@@ -6,8 +6,9 @@ headers, so the build takes seconds. It happens at first use, never at
 import, into ``kernels/build/<hash>/``, keyed by a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 
-K5 (``chain_cg.cu``) synchronises its grid with cooperative groups'
-``grid.sync()`` and is launched with ``cudaLaunchCooperativeKernel``; since
+K5 (``chain_cg.cu``) and K6 (``tree_cg.cu``) synchronise their grids with
+cooperative groups' ``grid.sync()`` and are launched with
+``cudaLaunchCooperativeKernel``; since
 CUDA 11 that needs no relocatable device code (``-rdc``), so every source
 takes the same flags.
 
@@ -34,8 +35,14 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+# central slots a block of K6 takes per window of its apply (the halo of
+# 2^rounds - 1 slots on both sides is recomputed by every block): a
+# compile-time constant of tree_cg.cu, defined here so that the wrapper's
+# shared-memory size and the kernel cannot disagree
+TREE_CG_CHUNK = 256
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-fmad=false",
-                           "-Xcompiler", "-fPIC"]
+                           "-Xcompiler", "-fPIC",
+                           f"-DTREE_CG_CHUNK={TREE_CG_CHUNK}"]
 LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 _P = ctypes.c_void_p
@@ -61,10 +68,17 @@ _SIGNATURES = {
         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
         ctypes.c_int, _P],
     "chain_cg_grid_blocks": [ctypes.POINTER(ctypes.c_int)],
+    # ptrs, n_ptrs, ints, n_ints (the enums Ptr and Int of tree_cg.cu),
+    # rtol, reg, stream
+    "tree_cg_f32": [ctypes.POINTER(_P), ctypes.c_int,
+                    ctypes.POINTER(_I64), ctypes.c_int, ctypes.c_float,
+                    ctypes.c_float, _P],
+    # dynamic shared memory bytes, out
+    "tree_cg_grid_blocks": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
 }
 
 _launches = {"chain_matvec": 0, "pcr_factor": 0, "pcr_apply": 0,
-             "anast_scan": 0, "chain_cg": 0}
+             "anast_scan": 0, "chain_cg": 0, "tree_cg": 0}
 
 
 def count_launch(name: str) -> None:

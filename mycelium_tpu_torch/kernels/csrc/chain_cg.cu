@@ -43,14 +43,20 @@
 #include <cooperative_groups.h>
 
 #include "chain_matvec.cuh"
+#include "grid_reduce.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr unsigned FULL = 0xffffffffu;
+using grid_reduce::FULL;
+using grid_reduce::THREADS;
+using grid_reduce::WARPS;
+using grid_reduce::block_sum;
+using grid_reduce::grid_total;
+using grid_reduce::prod;
+using grid_reduce::put_partial;
+using grid_reduce::warp_sum0;
 
 struct CgArgs {
   chain_op::Tables t;
@@ -72,43 +78,6 @@ struct CgArgs {
   float rtol;
   int max_iter;
 };
-
-__device__ __forceinline__ double warp_sum0(double v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
-  return v;   // valid in lane 0
-}
-
-__device__ __forceinline__ double prod(float a, float b) {
-  return (double)a * (double)b;   // exact
-}
-
-// the block's total of v, in a fixed order, returned to every thread
-__device__ double block_sum(double v, double* sh) {
-  v = warp_sum0(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    double s = 0.0;
-    for (int i = 0; i < WARPS; ++i) s += sh[i];
-    sh[WARPS] = s;
-  }
-  __syncthreads();
-  return sh[WARPS];
-}
-
-__device__ void put_partial(double v, double* slots, double* sh) {
-  double s = block_sum(v, sh);
-  if (threadIdx.x == 0) slots[blockIdx.x] = s;
-}
-
-// the sum of every block's slot, in the same order in every block, rounded
-// to float32
-__device__ float grid_total(const double* slots, double* sh) {
-  double v = 0.0;
-  for (int i = threadIdx.x; i < (int)gridDim.x; i += THREADS) v += slots[i];
-  return (float)block_sum(v, sh);
-}
 
 // a row of the coarse inverse times rc, one warp; every lane gets it
 __device__ __forceinline__ float warp_row(const float* row, const float* v,

@@ -15,9 +15,12 @@ import pytest
 import torch
 
 from mycelium_tpu_torch.config import GROWTH_PRESETS, FeaConfig
+from mycelium_tpu_torch.devices import moved
 from mycelium_tpu_torch.fea import build_model, solve_displacement
 from mycelium_tpu_torch.fea.chain import plan_active_masks_bool
 from mycelium_tpu_torch.fea.chain_solve import chain_cg_inputs
+from mycelium_tpu_torch.fea.ramp import anchored_mask_host
+from mycelium_tpu_torch.fea.tree_solve import tree_cg_inputs
 from mycelium_tpu_torch.growth import (TorchDraws, growth_step, init_state,
                                        neighbors, run_growth, summarize)
 from mycelium_tpu_torch.kernels import (anast_scan, anast_scan_plain,
@@ -26,7 +29,8 @@ from mycelium_tpu_torch.kernels import (anast_scan, anast_scan_plain,
                                         launch_counts, pcr_apply,
                                         pcr_apply_plain, pcr_factor,
                                         pcr_factor_plain,
-                                        reset_launch_counts)
+                                        reset_launch_counts, tree_cg,
+                                        tree_cg_plain)
 from mycelium_tpu_torch.scenes import petri_dish
 # imported by its own name (pytest puts tests/ on sys.path): a machine
 # with an unrelated installed package named "tests" shadows tests.*
@@ -146,15 +150,18 @@ def test_float64_model_on_card_raises(cuda_device):  # noqa: F811
 @pytest.mark.parametrize("dense_tail", [256, 0])
 def test_solve_on_card_goes_through_the_kernels(cuda_device,  # noqa: F811
                                                 dense_tail):
-    """A float32 solve on the card launches all three kernels and agrees
+    """A float32 hybrid solve on the card launches all three kernels and agrees
     with the plain path on the host to 5e-4 of the largest displacement
     (float32 CG to rtol 1e-6 on both). Without the dense tail every level
     is PCR, down to one-slot levels with zero rounds."""
     coords, conn = random_forest_mesh(900, 18, 4)
     cfg = FeaConfig(dtype="float32", operator="chain", precond="tree",
                     grip_length=0.1, rtol=1e-6, tree_dense_tail=dense_tail)
-    m = build_model(coords, conn, cfg, cuda_device)
-    mc = build_model(coords, conn, cfg, "cpu")
+    # the hybrid: this mesh is below the whole-solve kernel's gate
+    m = dataclasses.replace(build_model(coords, conn, cfg, cuda_device),
+                            tree_kernel=False)
+    mc = dataclasses.replace(build_model(coords, conn, cfg, "cpu"),
+                             tree_kernel=False)
     act = torch.ones(m.n_elems, dtype=torch.bool)
     x0 = torch.zeros((m.n_nodes, 3))
     reset_launch_counts()
@@ -336,3 +343,155 @@ def test_cg_coarse_solve_goes_through_k5(cuda_device):  # noqa: F811
     ref = solve_displacement(mc, act, 0.01, -0.01, x0, cfg)
     assert ref.converged and abs(res.iters - ref.iters) <= 0.02 * ref.iters
     assert rel_err(res.x.cpu(), ref.x) <= 1e-3
+
+
+def _tree_case(device, n_nodes=7375, frac=0.05, max_iter=20000,
+               rough=False, min_levels=1):
+    """K6's inputs for a cold cg + tree solve of the full ramp system on a
+    synthetic mesh, a fraction of the elements fractured and the islands
+    pinned. ``rough``: zero load and a random start instead, so that one
+    iteration moves x by alpha·M^-1(-A x0), one apply of the factored
+    preconditioner on a vector with no smoothness."""
+    coords, conn = synthetic_mesh(n_nodes)
+    cfg = FeaConfig(dtype="float32", operator="chain", precond="tree",
+                    grip_length=grip_for(coords), rtol=1e-6,
+                    tree_reg_rel=1e-7, max_iter=max_iter)
+    m = build_model(coords, conn, cfg, device)
+    assert m.tree_kernel and len(m.tree.meta.level_steps) >= min_levels
+    rng = np.random.default_rng(2)
+    act_np = rng.random(m.n_elems) >= frac
+    grip = (m.top_nodes | m.bot_nodes).cpu().numpy()
+    anch = torch.as_tensor(anchored_mask_host(conn, act_np, grip),
+                           device=device)
+    x0 = torch.as_tensor(rng.standard_normal((m.n_nodes, 3)) * rough,
+                         dtype=torch.float32, device=device)
+    dy = 0.0 if rough else 0.02
+    return tree_cg_inputs(m, torch.as_tensor(act_np, device=device), dy,
+                          -dy, x0, cfg, anch)
+
+
+# K6 after one iteration or one apply, as a share of the largest entry.
+# Against the plain version on the card: the same float32 operations, but
+# the plain version adds a junction's Schur corrections and attachment
+# products with index_add_ (float atomics, any order), and each further
+# level's adjugate inverses amplify the difference (readings on an H100 up
+# to 5.7e-5 on these forests of 3 and 5 levels). Against the plain version
+# on the CPU on copies of the same inputs, where index_add_ adds in the
+# kernel's order: bit-equal in every recorded run; the bound leaves a few
+# float32 ulps for a host whose vector sums round otherwise. The second is
+# what can see a fault in a small level.
+ONE_STEP_TOL = 5e-4
+ONE_STEP_TOL_SEQUENTIAL = 1e-6
+
+
+def _one_step(args):
+    """(share against plain on the card, share against plain on the CPU)
+    of the change of x over one iteration."""
+    args = list(args)
+    args[-1] = 1
+    start = args[5] * args[4]            # free·x0, what every side starts from
+    xk, sk = tree_cg(*args)
+    xp, sp = tree_cg_plain(*args)
+    xc, sc = tree_cg_plain(*moved(args, "cpu"))
+    assert int(sk[0]) == int(sp[0]) == int(sc[0]) == 1
+    dk, dc = (xk - start).cpu(), xc - start.cpu()
+    assert float(dc.abs().max()) > 0
+    return rel_err(dk, (xp - start).cpu()), rel_err(dk, dc)
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.05])
+def test_tree_cg_matches_plain(cuda_device, frac):  # noqa: F811
+    """K6 against its plain version after 1 iteration (ONE_STEP_TOL of
+    max |x| on the card, ONE_STEP_TOL_SEQUENTIAL on the CPU) and converged
+    (1e-5, iterations within 1), where CG has damped the difference."""
+    args = _tree_case(cuda_device, frac=frac, min_levels=3)
+    before = launch_counts()["tree_cg"]
+    card, cpu = _one_step(args)
+    assert launch_counts()["tree_cg"] == before + 1
+    assert card <= ONE_STEP_TOL and cpu <= ONE_STEP_TOL_SEQUENTIAL
+    xk, sk = tree_cg(*args)
+    xp, sp = tree_cg_plain(*args)
+    assert float(sk[1]) <= float(sk[2]) and float(sp[1]) <= float(sp[2])
+    assert 1 <= int(sk[0]) < 50 and abs(int(sk[0]) - int(sp[0])) <= 1
+    assert rel_err(xk.cpu(), xp.cpu()) <= 1e-5
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.05])
+@pytest.mark.parametrize("n_nodes", [7375, 33000])
+def test_tree_cg_one_apply_matches_plain(cuda_device, n_nodes,  # noqa: F811
+                                         frac):
+    """One apply of K6's factored preconditioner on a random vector against
+    the plain version's, on forests of 3 and 5 levels, where fills, flips
+    and attachments cross several levels: zero load, a random start, one
+    iteration, the change of x. On the deeper forest also the load case
+    after one iteration."""
+    levels = {7375: 3, 33000: 5}[n_nodes]
+    card, cpu = _one_step(_tree_case(cuda_device, n_nodes, frac, rough=True,
+                                     min_levels=levels))
+    assert card <= ONE_STEP_TOL and cpu <= ONE_STEP_TOL_SEQUENTIAL
+    if n_nodes == 33000:
+        card, cpu = _one_step(_tree_case(cuda_device, n_nodes, frac,
+                                         min_levels=levels))
+        assert card <= ONE_STEP_TOL and cpu <= ONE_STEP_TOL_SEQUENTIAL
+
+
+def test_tree_cg_is_deterministic(cuda_device):  # noqa: F811
+    """No float atomics: two launches on the same inputs give the same x
+    and the same stats, bit for bit."""
+    args = _tree_case(cuda_device)
+    x1, s1 = tree_cg(*args)
+    x2, s2 = tree_cg(*args)
+    assert torch.equal(x1, x2) and torch.equal(s1, s2)
+
+
+def test_tree_cg_rejects_bad_tensors(cuda_device):  # noqa: F811
+    args = list(_tree_case(cuda_device, 3000))
+    bad = list(args)
+    bad[3] = args[3].double()                # uk
+    with pytest.raises(ValueError):
+        tree_cg(*bad)
+    bad = list(args)
+    bad[8] = args[8].T.contiguous().T        # d9: (9, S) but not contiguous
+    with pytest.raises(ValueError):
+        tree_cg(*bad)
+    bad = list(args)
+    bad[10] = args[10][:-1].contiguous()     # katt of the wrong size
+    with pytest.raises(ValueError):
+        tree_cg(*bad)
+    bad = list(args)
+    bad[2] = dataclasses.replace(args[2], ordered=False)
+    with pytest.raises(ValueError):
+        tree_cg(*bad)
+
+
+def test_cg_tree_solve_goes_through_k6(cuda_device):  # noqa: F811
+    """Below the gate solve_displacement with cg + tree is one K6 launch
+    (and no K1-K3 launch), whatever the coarse weight, and agrees with the
+    plain path on the host to 1e-4 of max |x|; above it (forced) it is the
+    hybrid."""
+    coords, conn = random_forest_mesh(900, 18, 4)
+    cfg = FeaConfig(dtype="float32", operator="chain", precond="tree",
+                    grip_length=0.1, rtol=1e-6, tree_coarse_weight=0.25)
+    m = build_model(coords, conn, cfg, cuda_device)
+    mc = build_model(coords, conn, cfg, "cpu")
+    assert m.tree_kernel and mc.tree_kernel
+    act = torch.ones(m.n_elems, dtype=torch.bool)
+    x0 = torch.zeros((m.n_nodes, 3))
+    reset_launch_counts()
+    res = solve_displacement(m, act.to(cuda_device), 0.01, -0.01,
+                             x0.to(cuda_device), cfg)
+    counts = launch_counts()
+    assert res.converged and counts["tree_cg"] == 1, counts
+    assert counts["chain_matvec"] == counts["pcr_factor"] \
+        == counts["pcr_apply"] == 0
+    ref = solve_displacement(mc, act, 0.01, -0.01, x0, cfg)
+    assert ref.converged and abs(res.iters - ref.iters) <= 1
+    assert rel_err(res.x.cpu(), ref.x) <= 1e-4
+    reset_launch_counts()
+    hyb = solve_displacement(dataclasses.replace(m, tree_kernel=False),
+                             act.to(cuda_device), 0.01, -0.01,
+                             x0.to(cuda_device), cfg)
+    counts = launch_counts()
+    assert hyb.converged and counts["tree_cg"] == 0
+    assert counts["pcr_factor"] > 0 and counts["pcr_apply"] > 0
+    assert rel_err(hyb.x.cpu(), ref.x) <= 5e-4

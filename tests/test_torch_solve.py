@@ -75,7 +75,9 @@ def test_solve_matches_reference_hybrid_f32(frac):
                     warm_start=False)
     mp = jbuild(coords, conn, cfg)
     mp = mp._replace(tree_packed=None, tree_packed_big=True)
-    mt = tbuild(coords, conn, cfg, "cpu")
+    # below the whole-solve kernel's gate: force the hybrid on both sides
+    mt = dataclasses.replace(tbuild(coords, conn, cfg, "cpu"),
+                             tree_kernel=False)
     act, anch = _case(mp, frac)
     x0 = np.zeros((mp.n_nodes, 3), np.float32)
     rp = jsolve(mp, jnp.asarray(act), 0.01, -0.01, jnp.asarray(x0), cfg,

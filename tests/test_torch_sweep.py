@@ -30,7 +30,8 @@ from mycelium_tpu.config import FeaConfig
 from mycelium_tpu.io.writers import write_sweep_results as jwrite
 from mycelium_tpu_torch.bench import run_solver_sweep as tsweep
 from mycelium_tpu_torch.io import export_geometry, write_sweep_results
-from tests.torch_support import jax_coarse_in_float64, scene
+from tests.torch_support import (jax_coarse_in_float64, random_forest_mesh,
+                                 scene)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 COLUMNS = ["step", "solver", "pc", "trial", "runtime_ms", "pc_ref"]
@@ -121,3 +122,27 @@ def test_cli_sweep_writes_the_results(tmp_path):
     with open(tmp_path / "runtime_results_meta.json") as f:
         meta = json.load(f)
     assert len(meta["combos"]) == 15
+
+
+def test_sidecar_names_each_combination_route(tmp_path):
+    """float32 on the chain operator, below the whole-solve tree kernel's
+    gate: cg + tree (the leg and the physics solve) takes the route
+    'tree_cg' as the reference's sweep takes its whole-solve tree kernel,
+    cg + coarse 'chain_cg', everything else the chain path; the ell
+    operator runs in node space."""
+    coords, conn = random_forest_mesh(260, 8, 11)
+    cfg = FeaConfig(dtype="float32", n_steps=2, displacement_max=0.004,
+                    rtol=1e-5, max_iter=3000, operator="chain",
+                    precond="tree", tree_coarse_weight=0.25,
+                    tree_reg_rel=1e-7, grip_length=0.1)
+    _, meta = tsweep(coords, conn, cfg, trials=1, return_meta=True,
+                     device="cpu")
+    routes = {k: v["route"] for k, v in meta["combos"].items()}
+    assert routes["cg+tree"] == "tree_cg"
+    assert routes["cg+coarse"] == "chain_cg"
+    assert set(v for k, v in routes.items()
+               if k not in ("cg+tree", "cg+coarse")) == {"hybrid"}
+    assert meta["combos"]["cg+tree"]["converged_steps"] == 2
+    _, meta = tsweep(coords, conn, dataclasses.replace(cfg, operator="ell"),
+                     trials=1, return_meta=True, device="cpu")
+    assert {v["route"] for v in meta["combos"].values()} == {"node"}
