@@ -9,15 +9,22 @@ fails (non-zero exit) if any phase fails:
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``mycelium_tpu_torch/kernels/csrc``;
 3. compare K1-K3 with their plain PyTorch versions on the card at the
-   shapes of the 22,125-DOF mesh's plan, and time them, the plain
-   versions and, for K1, one PyTorch sparse product;
+   shapes of the 22,125-DOF mesh's plan and of the 309k-DOF mesh's (where
+   the FEA path launches them), and time them, the plain versions and, for
+   K1, one PyTorch sparse product: the call time ``ms`` (one event interval
+   over back-to-back calls: the larger of the device's time and the host's
+   time to submit a call) and ``device_ms``, the kernels' own duration
+   from ``torch.profiler``; K1 through its bound operator;
 4. compare K5 with its plain version on the 22,125-DOF mesh (after 1 and
    10 iterations, const and linear basis; converged; two launches equal),
    and time both;
 5. compare K6 with its plain version on the 22,125-DOF mesh, intact and 5%
-   fractured with the islands pinned (one preconditioner apply on a random
-   vector, the load case after 1 iteration and converged; two launches
-   equal), and time both;
+   fractured with the islands pinned (the set-up phase's outputs against
+   the plain set-up; one preconditioner apply on a random vector, the load
+   case after 1 iteration and converged; two launches equal), print which
+   levels run on path-aligned windows and the barriers of a solve, time
+   both, count the device operations and host syncs of one K6 solve (at
+   most 12 and 1), and time a grid-wide barrier at 33 to 264 blocks;
 6. the same comparison at the shapes of the larger meshes the main paths
    solve, 99k DOF (5 forest levels) and 309k DOF (6 levels), where fills
    and attachments cross several levels; then K6 against the hybrid (K1-K3
@@ -49,7 +56,12 @@ fails (non-zero exit) if any phase fails:
 12. the coupled pipeline at the medium preset with the fast solver preset,
    counts set to 0 before and read after: grow -> mesh -> model on the
    card -> cold solve (float64 residual check) -> 40-step ramp, the
-   solves through K6 where the model can run it.
+   solves through K6 where the model can run it;
+13. every reading that traces the card (each kernel's ``device_ms``, K6's
+   time by iteration cap, the device operations and host syncs of a K6
+   solve), last: a ``torch.profiler`` window slows every later launch of
+   the process on the host, so it may not precede a phase that is timed
+   on the host's clock.
 
 The last lines are the card again, one JSON object with the kernels'
 numbers, and ``{"ok": true, "device": {...}}``. Needs one CUDA card; with
@@ -57,7 +69,7 @@ none it exits non-zero and prints no result. No JAX is imported.
 
 Time: the whole run must end within 1200 s, the kernels' build included;
 phases 4 and 8 (K5 and the sweep) have a budget of 90 s of it. On an
-H100 the run takes about a minute.
+H100 the run takes 60 to 80 s.
 """
 
 from __future__ import annotations
@@ -131,6 +143,67 @@ def timed_ms(fn, device, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, device, reps: int) -> float:
+    """Mean milliseconds of device time per call: the durations of the
+    kernels (and copies) that ``reps`` calls put on the card, summed from a
+    ``torch.profiler`` trace. What the card spends, whatever the host needs
+    to submit the call."""
+    import torch
+    if device.type != "cuda":
+        return timed_ms(fn, device, reps)
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.name.startswith("ProfilerStep"))
+    if not total > 0:
+        raise AssertionError("the profiler saw no device time")
+    return total / 1e3 / reps
+
+
+# Work that traces the card, run at the end of the run. Found on the card:
+# after a torch.profiler window every later launch of the process costs the
+# host more (the xlarge growth ran 48-58 steps/s after one and 85-91
+# without, the sweep's host-loop legs 30-50% slower), so no traced window
+# may precede a phase that is timed on the host's clock.
+_DEFERRED = []
+
+
+def defer(action) -> None:
+    _DEFERRED.append(action)
+
+
+def defer_device_ms(label: str, row: dict, fn, reps: int, key="device_ms",
+                    call_key="ms") -> None:
+    """Leave ``row[key]`` to be read at the end of the run as the device
+    time of ``fn``; ``row[call_key]`` is its call time, already read."""
+    row[key] = None
+
+    def read(device):
+        row[key] = device_ms(fn, device, reps)
+        call = row[call_key]
+        log(f"{label}: call {call:.4f} ms, device {row[key]:.4f} ms (host "
+            f"share {host_share(call, row[key]):.0%}, "
+            f"{(call - row[key]) * 1e3:.1f} us)")
+
+    defer(read)
+
+
+def run_deferred(device) -> None:
+    while _DEFERRED:
+        _DEFERRED.pop(0)(device)
+
+
+def host_share(ms: float, dev: float) -> float:
+    """The share of a call's time that is not the device's."""
+    return max(0.0, 1.0 - dev / ms) if ms > 0 else 0.0
 
 
 def bound(nbytes: float, ops: float) -> tuple:
@@ -213,16 +286,18 @@ def sparse_bc_operator(model, coords, conn, cfg, active_np, freem, device):
         size=(3 * n, 3 * n)).to(device)
 
 
-def compare_kernels(model, coords, conn, cfg, device, rng) -> list:
-    """Phase 3: K1-K3 against their plain versions at the plan's shapes,
-    with a partly fractured active mask."""
+def compare_kernels(model, coords, conn, cfg, device, rng, size: str) -> list:
+    """Phase 3: K1-K3 against their plain versions at the plan's shapes
+    (``size`` names the mesh), with a partly fractured active mask. Each
+    time twice: per call and on the device."""
     import torch
     from mycelium_tpu_torch.fea.chain import plan_active_masks_bool
     from mycelium_tpu_torch.fea.tree_factor import (chain_tree_diag,
                                                     left_couplings)
-    from mycelium_tpu_torch.kernels import (chain_matvec, chain_matvec_plain,
-                                            pcr_apply, pcr_apply_plain,
-                                            pcr_factor, pcr_factor_plain)
+    from mycelium_tpu_torch.kernels import (ChainOperator, chain_matvec,
+                                            chain_matvec_plain, pcr_apply,
+                                            pcr_apply_plain, pcr_factor,
+                                            pcr_factor_plain)
     plan, tree = model.chain, model.tree
     n = model.n_nodes
     active_np = rng.random(model.n_elems) > 0.05
@@ -238,42 +313,61 @@ def compare_kernels(model, coords, conn, cfg, device, rng) -> list:
     # K1: float32 sums of the same terms; the plain version adds a node's
     # jump forces with index_add_ (atomics on the card, any order), the
     # kernel in CSR order, so they may differ by a few ulps of the largest
-    # term: 1e-5 of max |K·u| bounds that for ~10-term sums
+    # term: 1e-5 of max |K·u| bounds that for ~10-term sums. Against the
+    # plain version on the CPU, which adds in the kernel's order: 0
+    op = ChainOperator(plan, freem, cact, jact, cfg.reg)
+    cpu = [t.cpu() for t in (u, freem, cact, jact)]
+    from mycelium_tpu_torch.devices import moved
+    plan_c = moved(plan, "cpu")
     errs, ms, pms = [], [], []
     for bc in (True, False):
-        k = chain_matvec(plan, u, freem, cact, jact, cfg.reg, bc)
+        k = op.apply(u, bc)
         p = chain_matvec_plain(plan, u, freem, cact, jact, cfg.reg, bc)
+        pc = chain_matvec_plain(plan_c, *cpu, cfg.reg, bc)
         err, rel = rel_err([k], [p])
-        log(f"K1 chain_matvec bc={bc}: N={n} Jp={plan.ja.shape[0]} "
-            f"max_abs_err={err:.3e} rel={rel:.3e} (tol 1e-5)")
-        if not rel <= 1e-5:
-            raise AssertionError(f"K1 bc={bc} disagrees: rel {rel:.3e}")
+        same = torch.equal(k.cpu(), pc) and torch.equal(
+            chain_matvec(plan, u, freem, cact, jact, cfg.reg, bc), k)
+        log(f"K1 chain_matvec {size} bc={bc}: N={n} Jp={plan.ja.shape[0]} "
+            f"max_abs_err={err:.3e} rel={rel:.3e} (tol 1e-5); bit-equal to "
+            f"plain on the CPU and to the one-shot form: {same}")
+        if not (rel <= 1e-5 and same):
+            raise AssertionError(f"K1 {size} bc={bc} disagrees: rel "
+                                 f"{rel:.3e}, bit-equal on the CPU {same}")
         errs.append(err)
-        ms.append(timed_ms(lambda: chain_matvec(
-            plan, u, freem, cact, jact, cfg.reg, bc), device, 200))
+        ms.append(timed_ms(lambda: op.apply(u, bc), device, 200))
         pms.append(timed_ms(lambda: chain_matvec_plain(
             plan, u, freem, cact, jact, cfg.reg, bc), device, 200))
+    one_shot = timed_ms(lambda: chain_matvec(plan, u, freem, cact, jact,
+                                             cfg.reg, True), device, 200)
     Kt = sparse_bc_operator(model, coords, conn, cfg, active_np, freem,
                             device)
     uf = u.reshape(-1)
     lib_ms = timed_ms(lambda: Kt @ uf, device, 200)
-    _, lib_rel = rel_err([(Kt @ uf).reshape(3, n)], [chain_matvec(
-        plan, u, freem, cact, jact, cfg.reg, True)])
+    _, lib_rel = rel_err([(Kt @ uf).reshape(3, n)], [op.apply(u, True)])
     jp, nj = plan.ja.shape[0], plan.jump_ent.shape[0]
-    b1 = bound(nbytes(u, freem, cact, jact, plan.chain_n, plan.chain_kax,
-                      plan.chain_kbd, plan.jump_n, plan.jump_kax,
-                      plan.jump_kbd, plan.ja, plan.jb, plan.jump_ptr,
-                      plan.jump_ent) + 3 * n * 4,
+    k32 = plan.k32
+    b1 = bound(nbytes(u, freem, cact, jact, k32.chain_pack, plan.chain_kbd,
+                      k32.jump_pack, plan.jump_kbd, k32.ja, k32.jb,
+                      k32.jump_ptr, k32.jump_ent) + 3 * n * 4,
                n * 45 + nj * 40)
     rows.append(dict(name="chain_matvec", route="cuda",
                      source="mycelium_tpu_torch/kernels/csrc/chain_matvec.cu",
                      replaces="mycelium_tpu/fea/pallas_tree_big.py:55",
                      max_abs_err=max(errs), ms=ms[0], plain_ms=pms[0],
-                     bound_ms=b1[0], bound_by=b1[1], library_ms=lib_ms))
-    log(f"K1 time bc=True {ms[0]:.4f} ms (plain {pms[0]:.4f} ms, sparse "
-        f"CSR product {lib_ms:.4f} ms, rel {lib_rel:.1e} from K1, bound "
-        f"{b1[0]:.5f} ms by {b1[1]}), bc=False {ms[1]:.4f} ms (plain "
-        f"{pms[1]:.4f} ms); {jp} padded jumps")
+                     bound_ms=b1[0], bound_by=b1[1], library_ms=lib_ms,
+                     one_shot_ms=one_shot, raw_ms=ms[1]))
+    defer_device_ms(f"K1 {size} bc=True", rows[-1],
+                    lambda: op.apply(u, True), 200)
+    defer_device_ms(f"K1 {size} bc=False", rows[-1],
+                    lambda: op.apply(u, False), 200, "raw_device_ms",
+                    "raw_ms")
+    defer_device_ms(f"sparse CSR product {size}", rows[-1], lambda: Kt @ uf,
+                    200, "library_device_ms", "library_ms")
+    log(f"K1 time {size} bc=True call {ms[0]:.4f} ms (one-shot form "
+        f"{one_shot:.4f} ms; plain {pms[0]:.4f} ms; sparse CSR product call "
+        f"{lib_ms:.4f} ms, rel {lib_rel:.1e} from K1; bound {b1[0]:.5f} ms "
+        f"by {b1[1]}), bc=False call {ms[1]:.4f} ms (plain {pms[1]:.4f} "
+        f"ms); {jp} padded jumps")
 
     # K2/K3 on the largest PCR level, with the inputs the factorization
     # gives it (level 0 carries no Schur corrections or fill edges yet)
@@ -301,11 +395,11 @@ def compare_kernels(model, coords, conn, cfg, device, rng) -> list:
     err2, rel2 = 0.0, 0.0
     for name, a, b in zip(("alphas", "betas", "dinv", "corners"), kf, pf):
         e, r = rel_err([a], [b])
-        log(f"K2 pcr_factor {name}: S={S} steps={steps} "
+        log(f"K2 pcr_factor {size} {name}: S={S} steps={steps} "
             f"max_abs_err={e:.3e} rel={r:.3e} (tol 1e-4)")
         err2, rel2 = max(err2, e), max(rel2, r)
     if not rel2 <= 1e-4:
-        raise AssertionError(f"K2 disagrees: rel {rel2:.3e}")
+        raise AssertionError(f"K2 {size} disagrees: rel {rel2:.3e}")
     ms2 = timed_ms(lambda: pcr_factor(D, B, fg, lg, steps), device, 20)
     pms2 = timed_ms(lambda: pcr_factor_plain(D, B, fg, lg, steps), device, 5)
     # per slot and round: an adjugate inverse (~41 ops), six 3x3 block
@@ -317,8 +411,11 @@ def compare_kernels(model, coords, conn, cfg, device, rng) -> list:
                      replaces="mycelium_tpu/fea/pallas_factor.py:102",
                      max_abs_err=err2, ms=ms2, plain_ms=pms2,
                      bound_ms=b2[0], bound_by=b2[1], library_ms=None))
-    log(f"K2 time {ms2:.4f} ms (plain {pms2:.4f} ms, bound {b2[0]:.5f} ms "
-        f"by {b2[1]})")
+    # its device time includes the wrapper's corner right-hand sides
+    defer_device_ms(f"K2 {size}", rows[-1],
+                    lambda: pcr_factor(D, B, fg, lg, steps), 20)
+    log(f"K2 time {size} call {ms2:.4f} ms (plain {pms2:.4f} ms, bound "
+        f"{b2[0]:.5f} ms by {b2[1]})")
 
     # K3: same order of operations as the plain version; only the window
     # edges differ, and they never reach a central slot: 1e-5 relative
@@ -328,10 +425,10 @@ def compare_kernels(model, coords, conn, cfg, device, rng) -> list:
     k3 = pcr_apply(al, be, dinv, r)
     p3 = pcr_apply_plain(al, be, dinv, r)
     err3, rel3 = rel_err([k3], [p3])
-    log(f"K3 pcr_apply: S={S} steps={steps} max_abs_err={err3:.3e} "
+    log(f"K3 pcr_apply {size}: S={S} steps={steps} max_abs_err={err3:.3e} "
         f"rel={rel3:.3e} (tol 1e-5)")
     if not rel3 <= 1e-5:
-        raise AssertionError(f"K3 disagrees: rel {rel3:.3e}")
+        raise AssertionError(f"K3 {size} disagrees: rel {rel3:.3e}")
     ms3 = timed_ms(lambda: pcr_apply(al, be, dinv, r), device, 200)
     pms3 = timed_ms(lambda: pcr_apply_plain(al, be, dinv, r), device, 50)
     b3 = bound(nbytes(al, be, dinv, r, k3), S * (steps * 36 + 15))
@@ -340,8 +437,10 @@ def compare_kernels(model, coords, conn, cfg, device, rng) -> list:
                      replaces="mycelium_tpu/fea/pallas_factor.py:297",
                      max_abs_err=err3, ms=ms3, plain_ms=pms3,
                      bound_ms=b3[0], bound_by=b3[1], library_ms=None))
-    log(f"K3 time {ms3:.4f} ms (plain {pms3:.4f} ms, bound {b3[0]:.5f} ms "
-        f"by {b3[1]})")
+    defer_device_ms(f"K3 {size}", rows[-1],
+                    lambda: pcr_apply(al, be, dinv, r), 200)
+    log(f"K3 time {size} call {ms3:.4f} ms (plain {pms3:.4f} ms, bound "
+        f"{b3[0]:.5f} ms by {b3[1]})")
     return rows
 
 
@@ -466,11 +565,11 @@ def ramp_check(coords, conn, cfg, model, device):
 
 def async_check(coords, conn, cfg, model, device, loop, loop_wall) -> float:
     """``run_ramp_async`` on the same model: the records of ``run_ramp``.
-    The kernels add in a fixed order, but the per-solve diagonal is
-    assembled with index_add_ (float atomics on the card), so two runs may
-    differ in the last bits of a solve's inputs: the active masks and the
-    iteration counts must be equal, displacement (per-step L2) and force
-    within 1e-4 of the ramp's largest."""
+    The kernel adds in a fixed order, its set-up included (no float
+    atomics), so the two runs solve the same systems; the reachability
+    sweep and the reactions are PyTorch operations. The active masks and
+    the iteration counts must be equal, displacement (per-step L2) and
+    force within 1e-4 of the ramp's largest (the reading is printed)."""
     from mycelium_tpu_torch.fea import run_ramp_async
     t0 = time.perf_counter()
     res = run_ramp_async(coords, conn, cfg, model=model, sync_every=8)
@@ -585,14 +684,16 @@ def compare_anast(st, cfg, device) -> dict:
     read = (cell.shape[0] * 4 + n_in * 16 + uc.numel() * 12
             + int(grid.count[uc].sum()) * 32 + int(ov_count[uc].sum()) * 28)
     b4 = bound(read + cell.shape[0] * 12, pairs * 27)
-    log(f"K4 time {ms:.4f} ms (plain {pms:.4f} ms, bound {b4[0]:.5f} ms by "
+    log(f"K4 time call {ms:.4f} ms (plain {pms:.4f} ms, bound {b4[0]:.5f} ms by "
         f"{b4[1]}: {read / 2**20:.2f} MiB read, {pairs} distance pairs, "
         f"{uc.numel()} of {M} cells)")
-    return dict(name="anast_scan", route="cuda",
-                source="mycelium_tpu_torch/kernels/csrc/anast_scan.cu",
-                replaces="mycelium_tpu/growth/pallas_anast.py:59",
-                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b4[0],
-                bound_by=b4[1], library_ms=None)
+    row = dict(name="anast_scan", route="cuda",
+               source="mycelium_tpu_torch/kernels/csrc/anast_scan.cu",
+               replaces="mycelium_tpu/growth/pallas_anast.py:59",
+               max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b4[0],
+               bound_by=b4[1], library_ms=None)
+    defer_device_ms("K4", row, lambda: anast_scan(*args), 50)
+    return row
 
 
 def grow_plain_scan(cfg, device, on_step):
@@ -726,43 +827,47 @@ def compare_chain_cg(model, conn, cfg, device, rng) -> dict:
     per_ops = 146 * n + 30 * plan.jump_ent.shape[0] + 2 * nc * nc
     b5 = bound(tables + nbytes(uk, x0, xk), per_ops * ik)
     stream = bound((tables + 2 * 3 * 3 * n * 4) * ik, 0)[0]
-    log(f"K5 time {ms:.4f} ms a solve ({ik} iterations, "
+    log(f"K5 time call {ms:.4f} ms a solve ({ik} iterations, "
         f"{ms * 1e3 / max(ik, 1):.2f} us an iteration; plain {pms:.4f} ms, "
         f"bound {b5[0]:.5f} ms by {b5[1]}: {per_ops / 1e6:.3f} Mop an "
         f"iteration; streaming an iteration's {tables / 2**20:.3f} MiB of "
         f"tables and the vectors from memory {stream:.5f} ms; nc {nc})")
-    return dict(name="chain_cg", route="cuda",
-                source="mycelium_tpu_torch/kernels/csrc/chain_cg.cu",
-                replaces="mycelium_tpu/fea/pallas_cg.py:196",
-                max_abs_err=max(err_max, err), ms=ms, plain_ms=pms,
-                bound_ms=b5[0],
-                bound_by=b5[1], library_ms=None)
+    row = dict(name="chain_cg", route="cuda",
+               source="mycelium_tpu_torch/kernels/csrc/chain_cg.cu",
+               replaces="mycelium_tpu/fea/pallas_cg.py:196",
+               max_abs_err=max(err_max, err), ms=ms, plain_ms=pms,
+               bound_ms=b5[0], bound_by=b5[1], library_ms=None)
+    defer_device_ms("K5", row, lambda: chain_cg(*args), 5)
+    return row
 
 
 def tree_cg_work(model, iters: int) -> tuple:
     """(bytes, operations, streamed bytes) of one K6 solve of ``model``
-    that takes ``iters`` iterations. Bytes: every input and table read
-    once and x written once. Operations: the factorization once (per slot
-    and round 563, a last inverse 131, per path ~500 for the corner blocks
-    and Schur products), then per iteration the operator (65 a position, 30
-    a jump entry), two level applies (36 a slot and round plus 15), and the
-    dots and updates (42 a position). Streamed: what the phases move
-    between barriers, the factorization's state and coefficients once
-    (~250 B a slot and round) and per iteration the coefficients twice and
-    the vectors."""
-    from mycelium_tpu_torch.fea.model import tree_kernel_bytes
-    from mycelium_tpu_torch.kernels.tree_cg import work_floats
+    that takes ``iters`` iterations. Bytes: the static tables the kernel is
+    handed and the solve's inputs (the active and free masks, x0) read
+    once, x and the stats written once (``TreeCgLaunch.io_bytes``).
+    Operations: the set-up (~120 a slot for the diagonal and couplings, 12 a
+    position), the factorization once (per slot and round 563, a last
+    inverse 131, per path ~500 for the corner blocks and Schur products),
+    then per iteration the operator (45 a position: each slot force once,
+    30 a jump entry), two level applies (36 a slot and round plus 15), and
+    the dots and updates (42 a position). Streamed: what the phases move
+    between barriers, the factorization's coefficients once (~150 B a slot
+    and round; the state stays in shared memory on a windowed level) and
+    per iteration the coefficients twice and the vectors."""
     meta, tk = model.tree.meta, model.tree_tables
     n, S, P = model.n_nodes, model.tree.n_slots, model.tree.n_paths
     sizes = [b - a for a, b in zip(meta.level_offsets,
                                    meta.level_offsets[1:])]
-    io = tree_kernel_bytes(model) - 4 * work_floats(n, S, P, tk)
+    io = model.tree_launch.io_bytes()
     fac = sum(sl * (k * 563 + 131) for sl, k in zip(sizes, meta.level_steps))
     app = sum(sl * (k * 36 + 15) for sl, k in zip(sizes, meta.level_steps))
     nj = model.chain.jump_ent.shape[0]
-    ops = fac + 500 * P + (iters + 1) * (2 * app + 107 * n + 30 * nj)
+    ops = (120 * S + 12 * n + fac + 500 * P
+           + (iters + 1) * (2 * app + 87 * n + 30 * nj))
     coef = 4 * 2 * tk.coef_floats
-    stream = (sum(250 * sl * k for sl, k in zip(sizes, meta.level_steps))
+    stream = (sum((150 if w else 250) * sl * k for sl, k, w in
+                  zip(sizes, meta.level_steps, tk.windowed))
               + (iters + 1) * (2 * coef + 4 * 9 * 2 * S + 4 * 3 * 10 * n))
     return io, ops, stream
 
@@ -771,17 +876,83 @@ def tree_cg_work(model, iters: int) -> tuple:
 # preconditioner apply (random vector) and on x after one iteration of the
 # load case, both as a share of the largest entry. The two sides do the same
 # float32 operations, but on the card the plain version adds a junction's
-# Schur corrections and attachment products with index_add_ (float atomics,
-# any order) where the kernel adds them in a fixed order; every further
-# level's adjugate inverses amplify that difference, so the bound grows
-# with the levels: about 8 times the largest reading of the runs recorded in
-# PERF.md (7.1e-6, 6.6e-5 and 8.3e-5)
+# Schur corrections and attachment products (and the diagonal's jump terms)
+# with index_add_ (float atomics, any order) where the kernel adds them in
+# a fixed order; every further level's adjugate inverses amplify that
+# difference, so the bound grows with the levels: about 8 times the largest
+# reading of the runs recorded in PERF.md (7.1e-6, 6.6e-5 and 8.3e-5)
 K6_TOL = {"22k": 5e-5, "99k": 5e-4, "309k": 5e-4}
 # K6 against its plain version run on the CPU on copies of the same inputs,
 # where index_add_ adds one term after another in the kernel's order: equal
 # bit for bit in every recorded run; the bound leaves a few float32 ulps for
 # a host whose vector sums round otherwise
 K6_TOL_SEQUENTIAL = 1e-6
+# device operations and host syncs one K6 solve may take
+K6_MAX_DEVICE_OPS = 12
+K6_MAX_HOST_SYNCS = 1
+
+
+def solve_args(model, cfg, active, anchored, dy_top, dy_bot, x0) -> tuple:
+    """The arguments of ``TreeCgLaunch.solve`` (and ``.plain``) for one
+    solve of ``model`` under ``cfg``."""
+    from mycelium_tpu_torch.fea.solve import free_mask
+    from mycelium_tpu_torch.fea.tree_solve import preconditioner_reg
+    return (active, free_mask(model, anchored), dy_top, dy_bot, x0, cfg.rtol,
+            cfg.reg, preconditioner_reg(model, cfg), cfg.max_iter)
+
+
+def compare_tree_setup(launch, cpu_launch, args, tag: str) -> None:
+    """The kernel's set-up phase, launched alone, against the plain set-up
+    on the CPU on copies of the same inputs: the masks, the prescribed
+    values and the start vector in chain order, the forest diagonal, the
+    left-edge and the attachment couplings. Tolerance 0: the kernel adds a
+    position's jump terms in the order of the jump CSR, which is the order
+    of a sequential index_add_; every other entry is one thread's
+    arithmetic in the plain version's order."""
+    from mycelium_tpu_torch.devices import moved
+    active, free, dy_top, dy_bot, x0, _, _, reg_pc, _ = args
+    got = launch.setup(active, free, dy_top, dy_bot, x0, reg_pc)
+    want = cpu_launch.setup(*moved((active, free), "cpu"), dy_top, dy_bot,
+                            x0.cpu(), reg_pc)
+    bad = [k for k in want if got[k].shape != want[k].shape
+           or not bool((got[k].cpu() == want[k]).all())]
+    worst = max(float((got[k].cpu().double() - want[k].double()).abs().max())
+                for k in want)
+    log(f"{tag}, set-up phase against the plain set-up on the CPU "
+        f"({', '.join(sorted(want))}): max_abs_err={worst:.3e} (tol 0)")
+    if bad or set(got) != set(want):
+        raise AssertionError(f"{tag}: the set-up disagrees in {bad}")
+
+
+def solve_footprint(solve, device, label: str) -> dict:
+    """Device operations and host syncs of one call of ``solve``, as
+    ``profile_fea`` counts them."""
+    if device.type != "cuda":
+        return dict(device_ops=0.0, host_syncs=0.0)
+    from mycelium_tpu_torch.profile_fea import profile, syncs_per_solve
+    n_syncs, sites = syncs_per_solve(solve, 3)
+    prof = profile(solve, 3, 1.0, None)
+    log(f"{label}: {prof['device_ops_per_solve']:.1f} device operations "
+        f"(device busy {prof['device_busy_ms']:.4f} ms) and {n_syncs:.1f} "
+        f"host syncs a solve {sites}; largest: "
+        f"{prof['top_kernels_ms_per_solve'][:3]}")
+    return dict(device_ops=prof["device_ops_per_solve"], host_syncs=n_syncs,
+                device_busy_ms=prof["device_busy_ms"])
+
+
+def barrier_probe(device) -> dict:
+    """What one grid-wide barrier costs on cooperative grids of 33 to 264
+    blocks of K6's block size with no work between the barriers: the
+    difference of a launch with 2,000 barriers and one with none."""
+    from mycelium_tpu_torch.kernels.tree_cg import barrier_probe as probe
+    out = {}
+    for grid in (33, 66, 132, 264):
+        base = timed_ms(lambda: probe(grid, 0, device), device, 20)
+        full = timed_ms(lambda: probe(grid, 2000, device), device, 20)
+        out[grid] = (full - base) / 2000 * 1e3
+    log("grid-wide barrier, microseconds each by blocks of the grid: "
+        + ", ".join(f"{g}: {us:.3f}" for g, us in out.items()))
+    return out
 
 
 def compare_tree_cg(model, conn, cfg, device, rng, size: str,
@@ -793,6 +964,7 @@ def compare_tree_cg(model, conn, cfg, device, rng, size: str,
     against the plain version on the CPU on copies of the same inputs
     (K6_TOL_SEQUENTIAL), which is what can see a fault in a small level.
 
+    - The set-up phase's outputs against the plain set-up on the CPU.
     - One apply of the factored preconditioner on a rough vector: zero load,
       a random start x0, one iteration, so that x1 - x0 = alpha·M^-1(-A x0)
       passes every level's factorization, fills, flips and attachment
@@ -804,28 +976,31 @@ def compare_tree_cg(model, conn, cfg, device, rng, size: str,
     import torch
     from mycelium_tpu_torch.devices import moved
     from mycelium_tpu_torch.fea.ramp import anchored_mask_host
-    from mycelium_tpu_torch.fea.tree_solve import tree_cg_inputs
-    from mycelium_tpu_torch.kernels import tree_cg, tree_cg_plain
-    from mycelium_tpu_torch.kernels.tree_cg import grid_blocks, smem_bytes
+    from mycelium_tpu_torch.kernels.tree_cg import barrier_count
     tol = K6_TOL[size]
+    launch = model.tree_launch
+    cpu_launch = launch.on("cpu")
+    tk = model.tree_tables
     grip = (model.top_nodes | model.bot_nodes).cpu().numpy()
     zero = torch.zeros((model.n_nodes, 3), dtype=model.dtype, device=device)
     rough = torch.as_tensor(rng.standard_normal((model.n_nodes, 3)),
                             dtype=model.dtype, device=device)
     dy = cfg.displacement_max
     off = model.tree.meta.level_offsets
+    n_win = np.diff(tk.wlv[0].cpu().numpy()).tolist()
     log(f"K6 tree_cg {size}: levels of "
         f"{[b - a for a, b in zip(off, off[1:])]} slots, rounds "
-        f"{model.tree.meta.level_steps}")
+        f"{model.tree.meta.level_steps}; on path-aligned windows of at most "
+        f"{tk.window} slots: {list(tk.windowed)} ({n_win} windows), the rest "
+        f"on global rounds")
 
     def one_step(tag, args):
         """K6, plain on the card and plain on the CPU after one iteration;
         the change of x, so that a start vector does not hide it."""
-        args = list(args)
-        args[-1] = 1
-        start = args[5] * args[4]        # free·x0, what every side starts from
-        (xk, sk), (xp, sp) = tree_cg(*args), tree_cg_plain(*args)
-        xc, sc = tree_cg_plain(*moved(args, "cpu"))
+        args = args[:-1] + (1,)
+        start = args[1][:, None] * args[4]   # free·x0: every side's start
+        (xk, sk), (xp, sp) = launch.solve(*args), launch.plain(*args)
+        xc, sc = cpu_launch.plain(*moved(args, "cpu"))
         err, rel = rel_err([xk - start], [xp - start])
         err_c, rel_c = rel_err([(xk - start).cpu()], [xc - start.cpu()])
         log(f"{tag}: against plain on the card max_abs_err={err:.3e} "
@@ -846,44 +1021,98 @@ def compare_tree_cg(model, conn, cfg, device, rng, size: str,
                                                   grip), device=device)
         active = torch.as_tensor(active_np, device=device)
         tag = f"K6 tree_cg {size}, {frac:.0%} fractured"
+        rough_args = solve_args(model, cfg, active, anch, 0.0, 0.0, rough)
+        compare_tree_setup(launch, cpu_launch,
+                           solve_args(model, cfg, active, anch, dy, -0.5 * dy,
+                                      rough), tag)
         err_max = max(err_max, one_step(
-            f"{tag}, one apply on a random vector",
-            tree_cg_inputs(model, active, 0.0, 0.0, rough, cfg, anch)))
-        args = tree_cg_inputs(model, active, dy, -dy, zero, cfg, anch)
+            f"{tag}, one apply on a random vector", rough_args))
+        args = solve_args(model, cfg, active, anch, dy, -dy, zero)
         err_max = max(err_max, one_step(f"{tag}, 1 iteration", args))
-        (xk, sk), (xp, sp) = tree_cg(*args), tree_cg_plain(*args)
-        xk2, sk2 = tree_cg(*args)
+        (xk, sk), (xp, sp) = launch.solve(*args), launch.plain(*args)
+        xc, sc = cpu_launch.plain(*moved(args, "cpu"))
+        xk2, sk2 = launch.solve(*args)
         sync(device)
         same = torch.equal(xk, xk2) and torch.equal(sk, sk2)
-        ik, ip = int(sk[0]), int(sp[0])
+        ik, ip, ic = int(sk[0]), int(sp[0]), int(sc[0])
         conv = float(sk[1]) <= float(sk[2]) and float(sp[1]) <= float(sp[2])
         err, rel = rel_err([xk], [xp])
-        log(f"{tag}, converged {conv}: {ik} iterations (plain {ip}), "
-            f"max_abs_err={err:.3e} rel={rel:.3e} (tol 1e-5), two launches "
-            f"bit-equal: {same}")
-        if not (conv and same and abs(ik - ip) <= 1 and rel <= 1e-5):
+        err_c, rel_c = rel_err([xk.cpu()], [xc])
+        nbar = launch.last_barriers() if device.type == "cuda" else 0
+        log(f"{tag}, converged {conv}: {ik} iterations (plain {ip}, on the "
+            f"CPU {ic}), max_abs_err={err:.3e} rel={rel:.3e} (tol 1e-5), "
+            f"against plain on the CPU max_abs_err={err_c:.3e} "
+            f"rel={rel_c:.3e} (tol {K6_TOL_SEQUENTIAL:.0e}), two launches "
+            f"bit-equal: {same}; {nbar} grid-wide barriers in the launch "
+            f"({barrier_count(tk, ik)} by the rule)")
+        if not (conv and same and abs(ik - ip) <= 1 and rel <= 1e-5
+                and ik == ic and rel_c <= K6_TOL_SEQUENTIAL):
             raise AssertionError(f"{tag}: disagrees with its plain version "
                                  "or is not deterministic")
-        err_max = max(err_max, err)
+        if device.type == "cuda" and nbar != barrier_count(tk, ik):
+            raise AssertionError(f"{tag}: {nbar} barriers, the rule says "
+                                 f"{barrier_count(tk, ik)}")
+        err_max = max(err_max, err, err_c)
     if not timed:
         return dict(max_abs_err=err_max)
-    ms = timed_ms(lambda: tree_cg(*args), device, 20)
-    pms = timed_ms(lambda: tree_cg_plain(*args), device, 1)
+    ms = timed_ms(lambda: launch.solve(*args), device, 20)
+    pms = timed_ms(lambda: launch.plain(*args), device, 1)
     io, ops, stream = tree_cg_work(model, ik)
     b6 = bound(io, ops)
-    grid = grid_blocks(device.index or 0,
-                       smem_bytes(model.tree_tables.max_steps)) \
-        if device.type == "cuda" else 0
-    log(f"K6 time {ms:.4f} ms a solve ({ik} iterations; plain {pms:.4f} ms, "
-        f"bound {b6[0]:.5f} ms by {b6[1]}: {io / 2**20:.3f} MiB of inputs "
-        f"and tables, {ops / 1e6:.3f} Mop; streaming every phase's "
-        f"{stream / 2**20:.3f} MiB from memory "
-        f"{bound(stream, 0)[0]:.5f} ms); grid {grid} blocks")
-    return dict(name="tree_cg", route="cuda",
-                source="mycelium_tpu_torch/kernels/csrc/tree_cg.cu",
-                replaces="mycelium_tpu/fea/pallas_tree.py:397",
-                max_abs_err=err_max, ms=ms, plain_ms=pms, bound_ms=b6[0],
-                bound_by=b6[1], library_ms=None)
+    grid = launch.grid if device.type == "cuda" else 0
+    L = len(tk.windowed)
+    fac_bar = barrier_count(tk, 0) - 1 - (2 * L - 1)
+    log(f"K6 time call {ms:.4f} ms a solve ({ik} iterations; plain "
+        f"{pms:.4f} ms, bound {b6[0]:.5f} ms by {b6[1]}: {io / 2**20:.3f} "
+        f"MiB of inputs and tables, {ops / 1e6:.3f} Mop; streaming every "
+        f"phase's {stream / 2**20:.3f} MiB from memory "
+        f"{bound(stream, 0)[0]:.5f} ms); grid {grid} blocks, "
+        f"{barrier_count(tk, ik)} barriers a solve, {fac_bar} of them to "
+        f"factor {L} levels")
+    if all(tk.windowed) and fac_bar > 3 * L:
+        raise AssertionError("K6: more than 3 barriers a windowed level")
+    row = dict(name="tree_cg", route="cuda",
+               source="mycelium_tpu_torch/kernels/csrc/tree_cg.cu",
+               replaces="mycelium_tpu/fea/pallas_tree.py:397",
+               max_abs_err=err_max, ms=ms, plain_ms=pms, bound_ms=b6[0],
+               bound_by=b6[1], library_ms=None,
+               barriers=barrier_count(tk, ik), grid=grid)
+    defer_device_ms(f"K6 {size}", row, lambda: launch.solve(*args), 20)
+
+    def breakdown(device):
+        """Where the launch's time goes (the iteration cap at 0 leaves the
+        set-up, the factorization and one preconditioner apply), and the
+        device operations and host syncs of one solve on the route."""
+        cap = [device_ms(lambda: launch.solve(*args[:-1], c), device, 20)
+               for c in (0, 1)]
+        setup = device_ms(lambda: launch.setup(*args[:5], args[7]), device,
+                          20)
+        log(f"K6 {size} device time by iteration cap: 0 (set-up, "
+            f"factorization, one apply) {cap[0]:.4f} ms, 1 {cap[1]:.4f} ms, "
+            f"converged ({ik}) {row['device_ms']:.4f} ms; the set-up phase "
+            f"as a kernel of its own {setup:.4f} ms")
+        foot = solve_footprint(lambda: cold_once(model, cfg, args), device,
+                               f"K6 solve {size}")
+        row.update(device_ms_cap0=cap[0], device_ms_cap1=cap[1],
+                   setup_device_ms=setup,
+                   solve_device_ops=foot["device_ops"],
+                   solve_host_syncs=foot["host_syncs"])
+        if foot["device_ops"] > K6_MAX_DEVICE_OPS or \
+                foot["host_syncs"] > K6_MAX_HOST_SYNCS:
+            raise AssertionError(f"K6 solve: {foot} exceeds "
+                                 f"{K6_MAX_DEVICE_OPS} device operations or "
+                                 f"{K6_MAX_HOST_SYNCS} host sync")
+
+    defer(breakdown)
+    return row
+
+
+def cold_once(model, cfg, args):
+    """One ``solve_displacement`` on the K6 route with the masks of
+    ``args`` (a ``solve_args`` tuple): what a ramp step calls."""
+    from mycelium_tpu_torch.fea import solve_displacement
+    active, free, dy_top, dy_bot, x0 = args[:5]
+    return solve_displacement(model, active, dy_top, dy_bot, x0, cfg, free)
 
 
 def route_compare(model, coords, conn, cfg, device, label: str) -> dict:
@@ -1069,7 +1298,9 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     cfg = hybrid_fea_config(warm_start=False)
     label = f"{3 * n_small} DOF"
     model = timed_build(coords, conn, cfg, device, label)
-    rows = compare_kernels(model, coords, conn, cfg, device, rng)
+    rows22 = compare_kernels(model, coords, conn, cfg, device, rng, "22k")
+    probe = barrier_probe(device) if device.type == "cuda" else {}
+    rows = []
     t0 = time.perf_counter()
     rows.append(compare_chain_cg(model, conn, k5_config(), device, rng))
     log(f"K5 comparison phase {time.perf_counter() - t0:.2f} s")
@@ -1087,6 +1318,16 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     label_b = f"{3 * n_big} DOF"
     log(f"{label_b}: synthetic mesh {time.perf_counter() - t0:.2f} s")
     model_b = timed_build(coords_b, conn_b, cfg_b, device, label_b)
+    # K1-K3 at the shapes of the 309k plan, where the FEA path launches
+    # them: these are the rows' times, the 22k readings ride beside them
+    t0 = time.perf_counter()
+    rows309 = compare_kernels(model_b, coords_b, conn_b, cfg_b, device, rng,
+                              "309k")
+    for big, small in zip(rows309, rows22):
+        big["max_abs_err"] = max(big["max_abs_err"], small["max_abs_err"])
+    rows = rows309 + rows
+    log(f"K1-K3 comparison at the 309k shapes {time.perf_counter() - t0:.2f} "
+        "s")
 
     # K6 against its plain version on the deeper forests of the larger
     # meshes the main paths solve, then against the hybrid, in one call, at
@@ -1105,8 +1346,9 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
                                    "309k", False)
     log(f"K6 comparison phases, 99k and 309k, with the 99k routes "
         f"{time.perf_counter() - t0:.2f} s")
-    rows[-1]["max_abs_err"] = max(rows[-1]["max_abs_err"],
-                                  *(d["max_abs_err"] for d in deep.values()))
+    k6_row = next(r for r in rows if r["name"] == "tree_cg")
+    k6_row["max_abs_err"] = max(k6_row["max_abs_err"],
+                                *(d["max_abs_err"] for d in deep.values()))
     routes["309k"] = route_compare(model_b, coords_b, conn_b, cfg_b, device,
                                    label_b)
 
@@ -1181,8 +1423,18 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
                     if pipe_counts[k] < 1]
         if missing:
             raise AssertionError(f"kernels never launched: {missing}")
+    # every traced reading, now that nothing timed on the host follows
+    t0 = time.perf_counter()
+    run_deferred(device)
+    log(f"device times and the K6 solve's footprint "
+        f"{time.perf_counter() - t0:.2f} s")
+    # the 22k readings of K1-K3 beside the rows' own (the 309k shapes)
+    for big, small in zip(rows309, rows22):
+        big.update({f"{k}_22k": v for k, v in small.items()
+                    if k.endswith("ms")})
     log(f"smoke wall time {time.perf_counter() - t_start:.1f} s")
-    return dict(kernels=rows, routes=routes, solve_ms_22k=ms22,
+    return dict(kernels=rows, routes=routes, barrier_us_by_blocks=probe,
+                solve_ms_22k=ms22,
                 iters_22k=it22, ramp_s_22k=ramp_s, ramp_async_s_22k=async_s,
                 ramp_steps_22k=n_rec,
                 ramp_fractured_22k=fractured, solve_ms_309k=ms309,

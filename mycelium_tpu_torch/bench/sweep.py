@@ -132,8 +132,11 @@ def run_solver_sweep(coords, conn, cfg,
             anchored = torch.as_tensor(
                 anchored_mask_host(conn_np, active_new_np, grip_np),
                 device=dev)
+        # a copy: the legs of the next step solve on the same model, and a
+        # solve on the whole-solve tree kernel returns a buffer that the
+        # solve after next overwrites (kernels.TreeCgLaunch)
         u_prev, active, active_np, prev_factor = \
-            u, active_new, active_new_np, factor
+            u.clone(), active_new, active_new_np, factor
         if not active_new_np.any():
             break
 

@@ -88,7 +88,7 @@ def model_from_jax(arrays: dict, cfg, device) -> FeaModel:
         jump_elem=i(a["chain.jump_elem"]), jump_n=f(a["chain.jump_n"].T),
         jump_kax=f(a["chain.jump_kax"]), jump_kbd=f(a["chain.jump_kbd"]),
         ja=i(a["chain.ja"]), jb=i(a["chain.jb"]), jump_ptr=i(jptr),
-        jump_ent=i(jent))
+        jump_ent=i(jent)).with_kernel_tables()
     meta = TreeMeta(
         level_offsets=tuple(int(x) for x in a["tree.meta.level_offsets"]),
         path_offsets=tuple(int(x) for x in a["tree.meta.path_offsets"]),

@@ -13,7 +13,7 @@ form of the reference's ``chain_apply``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -148,6 +148,35 @@ def build_chain_plan(coords: np.ndarray, conn: np.ndarray,
                 ja=ja, jb=jb, jump_ptr=jump_ptr, jump_ent=jump_ent)
 
 
+def index32(t: torch.Tensor, name: str) -> torch.Tensor:
+    """``t`` as a contiguous int32 tensor; raises if an entry does not fit
+    (the kernels index with 32 bits: N and 2J must stay below 2^31)."""
+    if t.numel() and (int(t.max()) >= 2 ** 31 or int(t.min()) < -2 ** 31):
+        raise ValueError(f"{name}: an index of {int(t.max())} does not fit "
+                         "32 bits; the kernels need N and 2J below 2^31")
+    return t.to(torch.int32).contiguous()
+
+
+@dataclass(frozen=True)
+class ChainKernelTables:
+    """The plan as K1 and K6 read it (built once per mesh from the plan's
+    own tensors): 32-bit copies of the index tables, same values and same
+    sentinels, and the static per-slot numbers packed so that a slot's
+    direction and axial stiffness come in one 16-byte load."""
+    perm: torch.Tensor          # (N,) int32
+    chain_elem: torch.Tensor    # (N,) int32 (sentinel E)
+    jump_elem: torch.Tensor     # (Jp,) int32 (sentinel E)
+    chain_pack: torch.Tensor    # (N, 4) n0, n1, n2, kax
+    jump_pack: torch.Tensor     # (Jp, 4)
+    ja: torch.Tensor            # (Jp,) int32 (sentinel N)
+    jb: torch.Tensor            # (Jp,) int32
+    jump_ptr: torch.Tensor      # (N+1,) int32
+    jump_ent: torch.Tensor      # (2J,) int32 entries 2*j + side, a node's
+                                # ja entries in ascending j, then its jb
+                                # entries: the order in which a sequential
+                                # index_add_ over cat([ja, jb]) adds them
+
+
 @dataclass(frozen=True)
 class ChainPlan:
     """Device tables of the chain operator. Node-indexed arrays live in
@@ -167,6 +196,21 @@ class ChainPlan:
     jb: torch.Tensor            # (Jp,) int64
     jump_ptr: torch.Tensor      # (N+1,) int64 per-node jump CSR
     jump_ent: torch.Tensor      # (2J,) int64 entries 2*j + side
+    k32: ChainKernelTables | None = None   # what the kernels read
+
+    def with_kernel_tables(self) -> "ChainPlan":
+        """The plan with ``k32`` built from its own tensors."""
+        def pack(n3, kax):
+            return torch.cat([n3.T, kax[:, None]], dim=1).contiguous()
+        return replace(self, k32=ChainKernelTables(
+            perm=index32(self.perm, "perm"),
+            chain_elem=index32(self.chain_elem, "chain_elem"),
+            jump_elem=index32(self.jump_elem, "jump_elem"),
+            chain_pack=pack(self.chain_n, self.chain_kax),
+            jump_pack=pack(self.jump_n, self.jump_kax),
+            ja=index32(self.ja, "ja"), jb=index32(self.jb, "jb"),
+            jump_ptr=index32(self.jump_ptr, "jump_ptr"),
+            jump_ent=index32(self.jump_ent, "jump_ent")))
 
     @staticmethod
     def from_host(host: dict, dtype, device) -> "ChainPlan":
@@ -185,7 +229,7 @@ class ChainPlan:
             jump_elem=i("jump_elem"), jump_n=f("jump_n", True),
             jump_kax=f("jump_kax"), jump_kbd=f("jump_kbd"),
             ja=i("ja"), jb=i("jb"), jump_ptr=i("jump_ptr"),
-            jump_ent=i("jump_ent"))
+            jump_ent=i("jump_ent")).with_kernel_tables()
 
 
 def plan_active_masks_bool(plan: ChainPlan, active: torch.Tensor):

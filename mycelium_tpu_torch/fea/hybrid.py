@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.chain_matvec import chain_matvec
+from ..kernels.chain_matvec import ChainOperator
 from .bc import prescribed_values
 from .chain import plan_active_masks_bool
 from .solve import (SOLVERS, SolveResult, chain_preconditioner, free_mask,
@@ -50,14 +50,15 @@ def chain_path_solve(model, active, dy_top: float, dy_bot: float, x0, cfg,
     precond = chain_preconditioner(model, active, cfg, free, tree_factor_val,
                                    free_chain_b, chain_act_b, jump_act_b)
 
-    def matvec(u, bc):
-        return chain_matvec(plan, u, freem, cact, jact, cfg.reg, bc)
+    # K1 bound once a solve: the plan and the masks are validated here, a
+    # call passes the vector
+    op = ChainOperator(plan, freem, cact, jact, cfg.reg)
 
     def operator(u):
-        return matvec(u, True)
+        return op.apply(u, True)
 
     # b = pin·u_k - free·(K u_k) with the RAW K (pinned columns kept)
-    b = pinm * uk_p - freem * matvec(uk_p, False)
+    b = pinm * uk_p - freem * op.apply(uk_p, False)
     x_start = freem * x0_p + pinm * uk_p
     bnorm = torch.sqrt(((freem * b) ** 2).sum())
     res = SOLVERS[cfg.solver](operator, b, x_start, precond, cfg.rtol,

@@ -48,6 +48,10 @@ class FeaModel:
     tree: TreePlan
     tree_fast: FastFactorData | None   # None when no node is free
     tree_tables: TreeKernelTables | None = None   # K6's index tables
+    # K6 bound to this model (kernels.TreeCgLaunch): the tables' pointers,
+    # the scratch and the result buffers, built once; None where the model
+    # cannot run the kernel
+    tree_launch: object | None = None
     # the model can run the whole-solve kernel K6 (float32, a forest whose
     # tables K6 can read, within the card's memory): a fact of the model,
     # whatever configuration built it. fea/solve.py::solve_route sends
@@ -178,11 +182,19 @@ def build_model(coords: np.ndarray, conn: np.ndarray, cfg,
 
 def with_tree_kernel(model: FeaModel) -> FeaModel:
     """``model`` with the whole-solve tree kernel's index tables (where its
-    forest has levels) and whether it can run that kernel."""
+    forest has levels), whether it can run that kernel and, if it can, the
+    kernel's launch bound to it."""
+    from ..kernels.tree_cg import TreeCgLaunch
+    launch = None
     if model.tree.meta.level_steps:
-        model = replace(model,
-                        tree_tables=build_tree_kernel_tables(model.tree))
-    return replace(model, tree_kernel=tree_kernel_fits(model))
+        tables = build_tree_kernel_tables(model.tree, model.conn)
+        launch = TreeCgLaunch(model.chain, model.tree, model.tree_fast,
+                              tables, model.conn, model.top_nodes,
+                              model.bot_nodes)
+        model = replace(model, tree_tables=tables, tree_launch=launch)
+    fits = tree_kernel_fits(model)
+    return replace(model, tree_kernel=fits,
+                   tree_launch=launch if fits else None)
 
 
 # The one memory guard of the whole-solve tree kernel K6: the bytes the
@@ -194,37 +206,31 @@ def with_tree_kernel(model: FeaModel) -> FeaModel:
 # and host reads, not by bytes. Beyond what was measured the model stays on
 # the hybrid, whose factorization is computed level by level.
 TREE_KERNEL_MAX_BYTES = 1000 * 1000 * 1000
-# K6's apply window must fit a block's shared memory (227 KB on the H100)
+# K6's windows must fit a block's shared memory (227 KB on the H100)
 TREE_KERNEL_MAX_SMEM = 227 * 1024
 
 
 def tree_kernel_bytes(model: FeaModel) -> int:
-    """Bytes of K6's inputs, tables and scratch for one solve of ``model``
-    (``kernels.tree_cg.work_floats`` and the tensors it is handed)."""
-    from ..kernels.tree_cg import work_floats
-    tk, cp = model.tree_tables, model.chain
-    n, S, P = model.n_nodes, model.tree.n_slots, model.tree.n_paths
-    tables = (cp.chain_n, cp.chain_kax, cp.chain_kbd, cp.jump_n, cp.jump_kax,
-              cp.jump_kbd, cp.ja, cp.jb, cp.jump_ptr, cp.jump_ent, tk.lvl,
-              tk.left_fill, tk.first_path, tk.last_path, tk.fg, tk.lg,
-              tk.has_fill, tk.att_tgt, tk.att_fill, tk.att_flip, tk.att_ptr,
-              tk.att_ent)
-    nbytes = sum(t.numel() * t.element_size() for t in tables)
-    # uk, x0, x (3N each), freem, cact (N), jact (Jp), d9, bel (9S), katt
-    per_solve = 11 * n + cp.ja.shape[0] + 18 * S + 18 * P
-    return nbytes + 4 * (per_solve + work_floats(n, S, P, tk))
+    """Bytes K6 touches in one solve of ``model``: the static tables it is
+    handed, the solve's inputs and the buffers its launch holds
+    (``kernels.TreeCgLaunch.nbytes``)."""
+    from ..kernels.tree_cg import TreeCgLaunch
+    launch = model.tree_launch or TreeCgLaunch(
+        model.chain, model.tree, model.tree_fast, model.tree_tables,
+        model.conn, model.top_nodes, model.bot_nodes)
+    return launch.nbytes()
 
 
 def tree_kernel_fits(model: FeaModel) -> bool:
     """Whether this model can run K6: a forest with levels whose fills and
     attachments point from earlier levels to later, float32, and the
-    kernel's bytes and shared-memory window within the card's. Which solves
+    kernel's bytes and shared memory within the card's. Which solves
     go there is the solve-time configuration's matter (``solve_route``)."""
     from ..kernels.tree_cg import smem_bytes
     tk = model.tree_tables
     return bool(tk is not None and tk.ordered
                 and model.dtype == torch.float32
-                and smem_bytes(tk.max_steps) <= TREE_KERNEL_MAX_SMEM
+                and smem_bytes(tk) <= TREE_KERNEL_MAX_SMEM
                 and tree_kernel_bytes(model) <= TREE_KERNEL_MAX_BYTES)
 
 

@@ -12,8 +12,11 @@ with tree_coarse_weight > 0) is reused across steps whose active mask did
 not change; a fracture event refreshes the grip reachability (on the
 device: ``tree_anchored`` where the model has a forest, else
 ``anchored_mask_device``) and the factorization. Solves that go to the
-whole-solve tree kernel (``solve_route`` 'tree_cg') factor inside their launch,
-so no factorization is kept for them.
+whole-solve tree kernel (``solve_route`` 'tree_cg') set up and factor inside
+their launch, so no factorization is kept for them; a solution returned
+there is a buffer of the model's launch that the solve after next
+overwrites, which is why the loops keep only the previous step's solution
+(for the warm start) and copy what they record.
 
 ``run_ramp`` reads the step's records on the host every step.
 ``run_ramp_async`` and ``run_ramp_scan`` keep them in preallocated device

@@ -23,6 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels.build import TREE_CG_WINDOW
 from ..kernels.pcr import TRANSPOSE9, pcr_apply, pcr_factor
 from .tree import KIND_ELEM, KIND_FILL, KIND_NONE, TreeSchedule
 
@@ -255,8 +256,9 @@ def build_fast_factor_data(schedule: TreeSchedule, k3: np.ndarray,
                                    device=device),
         jump_tree=torch.as_tensor(tree_pad[chain_host["jump_elem"]],
                                   device=device),
-        left_k3=torch.as_tensor(left_k3.transpose(1, 2, 0).reshape(9, -1),
-                                dtype=dtype, device=device),
+        left_k3=torch.as_tensor(np.ascontiguousarray(
+            left_k3.transpose(1, 2, 0).reshape(9, -1)), dtype=dtype,
+            device=device),
         ja=torch.as_tensor(np.asarray(chain_host["ja"], np.int64),
                            device=device),
         jb=torch.as_tensor(np.asarray(chain_host["jb"], np.int64),
@@ -553,9 +555,11 @@ def tree_apply_chain_planes(plan: TreePlan, factor: TreeFactor, rp):
 class TreeKernelTables:
     """The plan as K6 reads it (built once per mesh): int32 index arrays
     with -1 for "none", entry 2·path + side for a path's two attachments,
-    and a CSR of the attachment entries by junction slot, each slot's
+    a CSR of the attachment entries by junction slot, each slot's
     entries in the order (level, side, path) in which a sequential
-    ``index_add_`` over the levels adds them."""
+    ``index_add_`` over the levels adds them, the static numbers of the
+    per-solve set-up (left-edge and attachment elements with their end
+    nodes and couplings), and the path-aligned windows of every level."""
     lvl: torch.Tensor           # (4, L+1) int64: slot offsets, path offsets,
                                 # rounds, coefficient offsets (floats)
     left_fill: torch.Tensor     # (S,) 2·producing path + flip, -1
@@ -574,9 +578,64 @@ class TreeKernelTables:
     max_steps: int
     ordered: bool               # every fill and attachment points from an
                                 # earlier level to a later one
+    # the per-solve set-up
+    left_elem: torch.Tensor     # (S,) int32 left-edge element, -1
+    att_elem: torch.Tensor      # (2P,) int32 attachment element; -1 where
+                                # there is none, it is no forest edge or it
+                                # is a self-loop
+    att_na: torch.Tensor        # (2P,) int32 its end nodes (0 for none)
+    att_nb: torch.Tensor
+    att_k3: torch.Tensor        # (2P, 9) its coupling k3, 0 for none
+    # path-aligned windows: runs of consecutive whole paths of at most
+    # ``window`` slots; a level whose longest path is longer has none and
+    # keeps the global rounds (``windowed[li]`` False)
+    window: int
+    windowed: tuple             # per level
+    wlv: torch.Tensor           # (2, L+1) int64: window offsets, windowed
+    win_start: torch.Tensor     # (n_windows,) int32 first slot (global)
+    win_len: torch.Tensor       # (n_windows,) int32
+    smax_global: int            # slots of the largest level on global rounds
+    max_steps_global: int       # its most rounds (-1: none)
 
 
-def build_tree_kernel_tables(plan: TreePlan) -> TreeKernelTables:
+# slots of a path-aligned window of K6: the kernel's compile-time constant
+TREE_WINDOW = TREE_CG_WINDOW
+
+
+def path_windows(fg, lg, lo, po, window: int):
+    """Per level the windows of at most ``window`` slots that cut only at
+    path ends, packed greedily in path order: (windowed flags, window
+    offsets per level (L+1,), starts, lengths), host arrays, slots global.
+    A level is windowed when its paths tile its slot range in order and
+    none is longer than ``window``."""
+    L = len(lo) - 1
+    flags, off, starts, lens = [], [0], [], []
+    for li in range(L):
+        f, l = fg[po[li]:po[li + 1]], lg[po[li]:po[li + 1]]
+        tiled = bool(len(f) and f[0] == lo[li] and l[-1] == lo[li + 1] - 1
+                     and np.array_equal(f[1:], l[:-1] + 1)
+                     and np.all(l >= f))
+        ok = tiled and int((l - f + 1).max()) <= window
+        flags.append(ok)
+        if ok:
+            ends = np.concatenate([f, [lo[li + 1]]])    # path boundaries
+            i = 0
+            while i < len(f):
+                j = int(np.searchsorted(ends, ends[i] + window,
+                                        side="right")) - 1
+                starts.append(ends[i])
+                lens.append(ends[j] - ends[i])
+                i = j
+        off.append(len(starts))
+    return (tuple(flags), np.asarray(off, np.int64),
+            np.asarray(starts, np.int64), np.asarray(lens, np.int64))
+
+
+def build_tree_kernel_tables(plan: TreePlan, conn,
+                             window: int = TREE_WINDOW) -> TreeKernelTables:
+    """``conn`` (E, 2) is the model's element table; ``window`` (at most
+    the kernel's compile-time ``TREE_WINDOW``) is lowered by tests to
+    exercise the levels that cannot be windowed."""
     meta = plan.meta
     L = len(meta.level_steps)
     S, P = plan.n_slots, plan.n_paths
@@ -616,6 +675,26 @@ def build_tree_kernel_tables(plan: TreePlan) -> TreeKernelTables:
         and np.all(slot_level[tgt[ent]] > path_level[ent >> 1])
         and len(np.unique(fg)) == P and len(np.unique(lg)) == P)
 
+    # the set-up's static numbers, as attachment_couplings and
+    # left_couplings gather them
+    conn_np = host(conn).astype(np.int64)
+    E = conn_np.shape[0]
+    le = host(plan.left_elem)
+    ae = host(plan.att_elem).reshape(-1)
+    real = ae < E
+    aes = np.where(real, ae, 0)
+    na = np.where(real, conn_np[aes, 0] if E else 0, 0)
+    nb = np.where(real, conn_np[aes, 1] if E else 0, 0)
+    ok = real & (host(plan.tree_edge)[aes] if E else False) & (na != nb)
+    k3 = host(plan.k3).reshape(E, 9)
+    att_k3 = np.where(real[:, None], k3[aes] if E else 0.0, 0.0)
+
+    if window > TREE_WINDOW:
+        raise ValueError(f"window {window} exceeds the kernel's "
+                         f"{TREE_WINDOW}")
+    windowed, woff, wstart, wlen = path_windows(fg, lg, lo, po, window)
+    glob = [li for li in range(L) if not windowed[li]]
+
     def i32(a):
         return torch.as_tensor(np.ascontiguousarray(a, np.int32), device=dev)
 
@@ -627,7 +706,17 @@ def build_tree_kernel_tables(plan: TreePlan) -> TreeKernelTables:
         att_fill=i32(att_fill), att_flip=i32(host(plan.att_flip).reshape(-1)),
         att_ptr=i32(att_ptr), att_ent=i32(att_ent),
         smax=int(sizes.max()) if L else 0, coef_floats=int(coef[-1]),
-        max_steps=int(steps.max()), ordered=ordered)
+        max_steps=int(steps.max()), ordered=ordered,
+        left_elem=i32(np.where(le < E, le, -1)),
+        att_elem=i32(np.where(ok, ae, -1)), att_na=i32(na), att_nb=i32(nb),
+        att_k3=torch.as_tensor(np.ascontiguousarray(att_k3),
+                               dtype=plan.k3.dtype, device=dev),
+        window=int(window), windowed=windowed,
+        wlv=torch.as_tensor(np.stack([
+            woff, np.asarray(windowed + (False,), np.int64)]), device=dev),
+        win_start=i32(wstart), win_len=i32(wlen),
+        smax_global=max([int(sizes[li]) for li in glob], default=0),
+        max_steps_global=max([int(steps[li]) for li in glob], default=-1))
 
 
 # ---------------------------------------------------------------------------

@@ -1,51 +1,55 @@
 """The cg + tree chain solve through the whole-solve kernel K6 (port of
 ``mycelium_tpu/fea/pallas_tree.py::pallas_tree_solve``).
 
-Builds the kernel's inputs in chain order: the prescribed values and the
-start vector as (3, N) planes, the free and active masks, and the
-per-solve numerics of the forest factorization (its diagonal with
-reg_pc = max(reg, tree_reg_rel·k_scale), the left-edge and the attachment
-element couplings, masked by active, forest membership and both ends free),
-then runs factorization, preconditioner and PCG in one launch (the plain
-version on the CPU) and reads its [iterations, |r|, tol] once. B4's
-semantics: every level on PCR, no dense tail, no coarse stage (the
-configuration's ``tree_coarse_weight`` is not read), stop on
-r·r <= rtol²·|free·b|², no atol, no stall exit, no restarts.
+The model carries the kernel's bound launch (``model.tree_launch``,
+``kernels.TreeCgLaunch``): a solve hands it the active mask, the free mask
+(one ``&`` with the anchored mask), the grips' displacements and the start
+vector in the model's own order, and reads its [iterations, |r|, tol] once.
+The set-up (masks, prescribed values and start vector in chain order, the
+forest diagonal with reg_pc = max(reg, tree_reg_rel·k_scale), the left-edge
+and the attachment element couplings), the factorization, the
+preconditioner, PCG and the permutation back all run inside the one launch;
+on a CPU model the launch runs the plain version. B4's semantics: every
+level on PCR, no dense tail, no coarse stage (the configuration's
+``tree_coarse_weight`` is not read), stop on r·r <= rtol²·|free·b|², no
+atol, no stall exit, no restarts.
 """
 
 from __future__ import annotations
 
-from ..kernels.tree_cg import tree_cg
-from .bc import prescribed_values
-from .chain import plan_active_masks_bool
+from ..kernels.tree_cg import tree_cg_setup_plain
 from .solve import SolveResult, free_mask
-from .tree_factor import tree_factor_inputs
+
+
+def preconditioner_reg(model, cfg) -> float:
+    return max(cfg.reg, cfg.tree_reg_rel * model.tree.meta.k_scale)
 
 
 def tree_cg_inputs(model, active, dy_top: float, dy_bot: float, x0, cfg,
                    anchored=None) -> tuple:
-    """The arguments of ``kernels.tree_cg`` for one solve."""
-    plan = model.chain
-    dtype = model.dtype
-    free = free_mask(model, anchored)
-    chain_act_b, jump_act_b = plan_active_masks_bool(plan, active)
-    free_chain_b = free[plan.perm]
-    uk_p = prescribed_values(model, dy_top, dy_bot)[plan.perm].T.contiguous()
-    x0_p = x0.to(dtype)[plan.perm].T.contiguous()
-    reg_pc = max(cfg.reg, cfg.tree_reg_rel * model.tree.meta.k_scale)
-    d9, bel, katt = tree_factor_inputs(
-        model.tree, model.tree_fast, plan, active, free, free_chain_b,
-        reg_pc, model.conn, chain_act_b, jump_act_b)
-    return (plan, model.tree, model.tree_tables, uk_p, x0_p,
-            free_chain_b.to(dtype), chain_act_b.to(dtype),
-            jump_act_b.to(dtype), d9.contiguous(), bel.contiguous(), katt,
+    """The arguments of ``kernels.tree_cg_plain`` for one solve: the plain
+    set-up (what the kernel's first phase computes on the card)."""
+    s = tree_cg_setup_plain(
+        model.chain, model.tree, model.tree_fast, model.conn,
+        model.top_nodes, model.bot_nodes, active, free_mask(model, anchored),
+        dy_top, dy_bot, x0, preconditioner_reg(model, cfg))
+    return (model.chain, model.tree, model.tree_tables, s["uk"], s["x0"],
+            s["freem"], s["cact"], s["jact"], s["d9"], s["bel"], s["katt"],
             cfg.rtol, cfg.reg, cfg.max_iter)
 
 
 def tree_cg_solve(model, active, dy_top: float, dy_bot: float, x0, cfg,
                   anchored=None) -> SolveResult:
-    x_p, stats = tree_cg(*tree_cg_inputs(model, active, dy_top, dy_bot, x0,
-                                         cfg, anchored))
+    """``x`` of the result is a buffer of the model's launch on the card:
+    valid through the next solve on this model, overwritten by the one
+    after (``kernels.TreeCgLaunch``)."""
+    if model.tree_launch is None:
+        raise ValueError("this model cannot run the whole-solve tree kernel "
+                         "(float64, no forest level, or past its memory "
+                         "guard): fea/model.py::tree_kernel_fits")
+    x, stats = model.tree_launch.solve(
+        active, free_mask(model, anchored), dy_top, dy_bot, x0, cfg.rtol,
+        cfg.reg, preconditioner_reg(model, cfg), cfg.max_iter)
     iters, rnorm, tol = stats.tolist()
-    return SolveResult(x=x_p.T[model.chain.inv_perm], iters=int(iters),
-                       resnorm=rnorm, converged=rnorm <= tol)
+    return SolveResult(x=x, iters=int(iters), resnorm=rnorm,
+                       converged=rnorm <= tol)

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version: K1 ``chain_matvec``, K2 ``pcr_factor``, K3 ``pcr_apply``, K4
-``anast_scan``, K5 ``chain_cg``, K6 ``tree_cg``.
+``anast_scan``, K5 ``chain_cg``, K6 ``tree_cg`` (``TreeCgLaunch``).
 
 Nothing is compiled or loaded at import; ``build.library()`` compiles the
 sources on first use."""
@@ -8,12 +8,12 @@ sources on first use."""
 from .anast import anast_scan, anast_scan_plain
 from .build import launch_counts, reset_launch_counts
 from .chain_cg import chain_cg, chain_cg_plain
-from .chain_matvec import chain_matvec, chain_matvec_plain
+from .chain_matvec import ChainOperator, chain_matvec, chain_matvec_plain
 from .pcr import pcr_apply, pcr_apply_plain, pcr_factor, pcr_factor_plain
-from .tree_cg import tree_cg, tree_cg_plain
+from .tree_cg import TreeCgLaunch, tree_cg_plain, tree_cg_setup_plain
 
-__all__ = ["chain_matvec", "chain_matvec_plain", "pcr_factor",
+__all__ = ["ChainOperator", "chain_matvec", "chain_matvec_plain", "pcr_factor",
            "pcr_factor_plain", "pcr_apply", "pcr_apply_plain",
            "anast_scan", "anast_scan_plain", "chain_cg", "chain_cg_plain",
-           "tree_cg", "tree_cg_plain", "launch_counts",
-           "reset_launch_counts"]
+           "TreeCgLaunch", "tree_cg_plain", "tree_cg_setup_plain",
+           "launch_counts", "reset_launch_counts"]

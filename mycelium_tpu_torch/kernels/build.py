@@ -35,23 +35,31 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 SRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-# central slots a block of K6 takes per window of its apply (the halo of
-# 2^rounds - 1 slots on both sides is recomputed by every block): a
-# compile-time constant of tree_cg.cu, defined here so that the wrapper's
-# shared-memory size and the kernel cannot disagree
+# The compile-time constants of tree_cg.cu, defined here so that the
+# wrapper's shared-memory size and the kernel cannot disagree.
+# TREE_CG_WINDOW: slots of a path-aligned window of K6. One block holds the
+# window's whole factorization state in shared memory, 45 planes twice over
+# (360 B a slot): 256 slots are 92 KB, so two blocks fit one SM of an H100
+# (227 KB), and a round is one slot a thread of the 256-thread block. The
+# default longest path (``tree_max_path_len`` 128) fits twice.
+# TREE_CG_CHUNK: central slots a block takes per halo window of the apply on
+# a level with a longer path, which keeps global rounds (the halo of
+# 2^rounds - 1 slots on both sides is recomputed by every block).
+TREE_CG_WINDOW = 256
 TREE_CG_CHUNK = 256
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-fmad=false",
                            "-Xcompiler", "-fPIC",
-                           f"-DTREE_CG_CHUNK={TREE_CG_CHUNK}"]
+                           f"-DTREE_CG_CHUNK={TREE_CG_CHUNK}",
+                           f"-DTREE_CG_WINDOW={TREE_CG_WINDOW}"]
 LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
 _SIGNATURES = {
-    # u, free, cact, jact, cn, ckax, ckbd, jn, jkax, jkbd, ja, jb, jp,
-    # jptr, jent, out, n, reg, bc, stream
-    "chain_matvec_f32": [_P] * 12 + [_I64, _P, _P, _P, _I64,
-                                     ctypes.c_float, ctypes.c_int, _P],
+    # ptrs, n_ptrs (the enum Ptr of chain_matvec.cu), n, reg, u, out, bc,
+    # stream
+    "chain_matvec_f32": [ctypes.POINTER(_P), ctypes.c_int, _I64,
+                         ctypes.c_float, _P, _P, ctypes.c_int, _P],
     # D, B, rhs, al, be, dinv, xc, work, S, steps, stream
     "pcr_factor_f32": [_P] * 8 + [_I64, ctypes.c_int, _P],
     # al, be, dinv, r, u, S, steps, stream
@@ -69,12 +77,21 @@ _SIGNATURES = {
         ctypes.c_int, _P],
     "chain_cg_grid_blocks": [ctypes.POINTER(ctypes.c_int)],
     # ptrs, n_ptrs, ints, n_ints (the enums Ptr and Int of tree_cg.cu),
-    # rtol, reg, stream
+    # active, free, x0, x, stats, dy_top, dy_bot, rtol, reg, reg_pc,
+    # max_iter, stream
     "tree_cg_f32": [ctypes.POINTER(_P), ctypes.c_int,
-                    ctypes.POINTER(_I64), ctypes.c_int, ctypes.c_float,
-                    ctypes.c_float, _P],
-    # dynamic shared memory bytes, out
-    "tree_cg_grid_blocks": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+                    ctypes.POINTER(_I64), ctypes.c_int] + [_P] * 5
+    + [ctypes.c_float] * 5 + [ctypes.c_int, _P],
+    # ptrs, n_ptrs, ints, n_ints, active, free, x0, dy_top, dy_bot, reg_pc,
+    # stream
+    "tree_cg_setup_f32": [ctypes.POINTER(_P), ctypes.c_int,
+                          ctypes.POINTER(_I64), ctypes.c_int] + [_P] * 3
+    + [ctypes.c_float] * 3 + [_P],
+    # dynamic shared memory bytes, blocks per SM (out), SMs (out)
+    "tree_cg_grid_blocks": [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                            ctypes.POINTER(ctypes.c_int)],
+    # grid blocks, barriers, out (one int on the device), stream
+    "tree_cg_barrier_probe": [ctypes.c_int, ctypes.c_int, _P, _P],
 }
 
 _launches = {"chain_matvec": 0, "pcr_factor": 0, "pcr_apply": 0,
@@ -180,3 +197,14 @@ def check(rc: int, name: str) -> None:
 def stream_handle(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def raw_stream(device_index: int) -> int:
+    """The current stream's handle of a device by its index, without
+    building a ``torch.cuda.Stream`` object: what a bound launch calls on
+    every launch."""
+    import torch
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device_index)
+    return torch.cuda.current_stream(device_index).cuda_stream

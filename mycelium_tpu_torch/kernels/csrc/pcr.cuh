@@ -12,6 +12,13 @@
 // outside [0, len) read as zero; that is exact because the couplings are
 // zero at every path end.
 //
+// A level whose paths tile it can be cut into windows of whole paths. PCR
+// never couples two paths, so a block that holds a window's state in shared
+// memory runs every round on it alone (factor_rounds_window, and
+// apply_rounds with the window as its whole extent): slots outside the
+// window read as zero exactly as slots outside the level do, and the
+// results are the whole level's, up to the sign of a zero.
+//
 // No pointer carries __restrict__: K6 writes these buffers and reads them
 // again after a grid-wide barrier, so its loads must not go through the
 // read-only (non-coherent) data path.
@@ -131,6 +138,33 @@ __device__ __forceinline__ void round_slot(const float* cur, float* nxt,
       rn[(6 * q + j) * st + i] = r[(6 * q + j) * st + i] - (am + bp);
     }
   }
+}
+
+// Every round of one window of wl whole-path slots whose state sits in
+// shared memory (cur, nxt: 45 planes of stride st each), with
+// __syncthreads() between the rounds. al, be point at the window's first
+// slot in the level's coefficient planes (plane stride sc, 9 planes a
+// round). Every thread of the block calls it; the state must be complete
+// (a __syncthreads() after it was written). Returns the buffer that holds
+// the final state.
+__device__ __forceinline__ float* factor_rounds_window(float* cur, float* nxt,
+                                                       int st, int wl,
+                                                       int steps, float* al,
+                                                       float* be,
+                                                       long long sc) {
+  long long s = 1;
+  for (int k = 0; k < steps; ++k) {
+    float* alk = al + (long long)k * 9 * sc;
+    float* bek = be + (long long)k * 9 * sc;
+    for (int i = threadIdx.x; i < wl; i += blockDim.x)
+      round_slot(cur, nxt, alk, bek, st, sc, wl, i, s);
+    __syncthreads();
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
+    s *= 2;
+  }
+  return cur;
 }
 
 // After the last round: d = inv(D[i]) and the corner solution

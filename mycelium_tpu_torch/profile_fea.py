@@ -6,8 +6,9 @@
 For each synthetic mesh (``meshes.synthetic_mesh``, the configuration of
 ``hybrid_fea_config``, coarse weight 0) it solves the full-displacement
 system cold through the whole-solve tree kernel (K6, ``model.tree_kernel``
-forced on) and through the hybrid (K1-K3 and a CG loop on the host, forced
-off), and per route reports:
+forced on: one ``&`` for the free mask, the launch bound to the model, one
+read of its stats) and through the hybrid (K1-K3 and a CG loop on the host,
+forced off), and per route reports:
 
 1. wall milliseconds a solve, the card synchronised at the end (median of
    ``--reps``), the iterations and |r|;
@@ -17,7 +18,14 @@ off), and per route reports:
    warm-up solve): device operations and device-busy milliseconds a solve,
    the busy share of pass 1's wall time, and the largest kernels;
 4. the 40-step ramp of the mesh on its own route (``run_ramp`` and
-   ``run_ramp_async``), wall seconds.
+   ``run_ramp_async``), wall seconds, and what a ramp step spends beside
+   its solve: ``post_solve`` (reactions, stress, fracture), the four
+   record reads of ``run_ramp`` and one refresh of the grip reachability,
+   wall milliseconds each, synchronised (median of ``--reps``).
+
+Every mesh's wall readings (1 and 4) are taken before any mesh's syncs and
+traces (2 and 3): a ``torch.profiler`` window slows every later launch of
+the process on the host.
 
 Prints one JSON object, the card's name and power limit in it; with
 ``--out`` it also writes the Chrome traces there. Needs a CUDA card.
@@ -40,7 +48,7 @@ from .config import hybrid_fea_config
 from .fea import (build_model, run_ramp, run_ramp_async, solve_displacement,
                   solve_route)
 from .fea.model import tree_kernel_bytes
-from .fea.ramp import refresh_anchored
+from .fea.ramp import post_solve, refresh_anchored
 from .kernels import launch_counts, reset_launch_counts
 from .meshes import synthetic_mesh
 
@@ -119,7 +127,12 @@ def profile(solve, reps: int, wall_ms: float, trace_path):
                                           for k, v in top])
 
 
-def profile_mesh(n_nodes: int, reps: int, out_dir) -> dict:
+def profile_mesh(n_nodes: int, reps: int, out_dir):
+    """A generator in two passes: first everything read on the host's clock
+    (it yields None when that is done), then the syncs and the traces (it
+    yields the mesh's results). ``main`` runs the first pass of every mesh
+    before the second of any: a ``torch.profiler`` window slows every later
+    launch of the process on the host."""
     coords, conn = synthetic_mesh(n_nodes)
     ext = float(coords[:, 1].max() - coords[:, 1].min())
     # the grips of the repository's benchmark: the default length up to
@@ -137,25 +150,35 @@ def profile_mesh(n_nodes: int, reps: int, out_dir) -> dict:
                level_rounds=list(model.tree.meta.level_steps),
                kernel_bytes=tree_kernel_bytes(model),
                default_route=solve_route(model, cfg), routes={})
+    solves = {}
     for name, on in (("tree_cg", True), ("hybrid", False)):
         m = dataclasses.replace(model, tree_kernel=on)
 
-        def solve():
+        def solve(m=m):
             return solve_displacement(m, active, dy, -dy, x0, cfg, anchored)
 
+        solves[name] = solve
         solve()                                     # build, warm caches
         wall_ms, res = solve_ms(solve, reps)
         reset_launch_counts()
         solve()
         counts = {k: v for k, v in launch_counts().items() if v}
-        n_syncs, sites = syncs_per_solve(solve, reps)
-        trace = (os.path.join(out_dir, f"fea_{n_nodes}_{name}.json")
-                 if out_dir else None)
         out["routes"][name] = dict(
             solve_ms=wall_ms, iters=res.iters, resnorm=res.resnorm,
-            converged=res.converged, kernel_launches=counts,
-            host_syncs_per_solve=n_syncs, syncs_by_line=sites,
-            **profile(solve, reps, wall_ms, trace))
+            converged=res.converged, kernel_launches=counts)
+    # a ramp step beside its solve, on the cold solve's displacement
+    u = solve_displacement(model, active, dy, -dy, x0, cfg, anchored).x
+
+    def records():
+        stress, active_new, force = post_solve(model, cfg, u, active)
+        return (active_new.cpu(), float(force), stress.cpu(), u.cpu())
+
+    out["step_parts_ms"] = dict(
+        post_solve=solve_ms(lambda: post_solve(model, cfg, u, active),
+                            reps)[0],
+        post_solve_and_record_reads=solve_ms(records, reps)[0],
+        refresh_anchored=solve_ms(lambda: refresh_anchored(model, active),
+                                  reps)[0])
     ramp_cfg = dataclasses.replace(cfg, warm_start=True)
     run_ramp(coords, conn, ramp_cfg, model=model)   # warm
     for name, fn in (("run_ramp", run_ramp),
@@ -166,7 +189,15 @@ def profile_mesh(n_nodes: int, reps: int, out_dir) -> dict:
         _sync()
         out[f"{name}_s"] = time.perf_counter() - t0
         out[f"{name}_steps"] = int(r.force_disp.shape[0])
-    return out
+    yield None
+    for name, solve in solves.items():
+        n_syncs, sites = syncs_per_solve(solve, reps)
+        trace = (os.path.join(out_dir, f"fea_{n_nodes}_{name}.json")
+                 if out_dir else None)
+        out["routes"][name].update(
+            host_syncs_per_solve=n_syncs, syncs_by_line=sites,
+            **profile(solve, reps, out["routes"][name]["solve_ms"], trace))
+    yield out
 
 
 def main(argv=None) -> int:
@@ -178,9 +209,11 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_fea: needs a CUDA card")
-    print(json.dumps(dict(
-        card=card_line(), reps=args.reps,
-        meshes=[profile_mesh(n, args.reps, args.out) for n in args.nodes])))
+    runs = [profile_mesh(n, args.reps, args.out) for n in args.nodes]
+    for run in runs:            # every wall reading before any trace
+        next(run)
+    print(json.dumps(dict(card=card_line(), reps=args.reps,
+                          meshes=[next(run) for run in runs])))
     return 0
 
 

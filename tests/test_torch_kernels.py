@@ -20,17 +20,19 @@ from mycelium_tpu_torch.fea import build_model, solve_displacement
 from mycelium_tpu_torch.fea.chain import plan_active_masks_bool
 from mycelium_tpu_torch.fea.chain_solve import chain_cg_inputs
 from mycelium_tpu_torch.fea.ramp import anchored_mask_host
-from mycelium_tpu_torch.fea.tree_solve import tree_cg_inputs
 from mycelium_tpu_torch.growth import (TorchDraws, growth_step, init_state,
                                        neighbors, run_growth, summarize)
-from mycelium_tpu_torch.kernels import (anast_scan, anast_scan_plain,
+from mycelium_tpu_torch.fea.tree_factor import build_tree_kernel_tables
+from mycelium_tpu_torch.fea.tree_solve import preconditioner_reg
+from mycelium_tpu_torch.kernels import (ChainOperator, TreeCgLaunch,
+                                        anast_scan, anast_scan_plain,
                                         chain_cg, chain_cg_plain,
                                         chain_matvec, chain_matvec_plain,
                                         launch_counts, pcr_apply,
                                         pcr_apply_plain, pcr_factor,
                                         pcr_factor_plain,
-                                        reset_launch_counts, tree_cg,
-                                        tree_cg_plain)
+                                        reset_launch_counts)
+from mycelium_tpu_torch.kernels.tree_cg import barrier_count
 from mycelium_tpu_torch.scenes import petri_dish
 # imported by its own name (pytest puts tests/ on sys.path): a machine
 # with an unrelated installed package named "tests" shadows tests.*
@@ -88,6 +90,31 @@ def test_chain_matvec_rejects_bad_tensors(cuda_device):  # noqa: F811
     strided = torch.zeros((m.n_nodes, 3), device=cuda_device).T
     with pytest.raises(ValueError):
         chain_matvec(m.chain, strided, free, cact, jact, cfg.reg, True)
+
+
+def test_chain_operator_applies_like_the_one_shot(cuda_device):  # noqa: F811
+    """The bound operator: both forms of the product equal the plain
+    version on the host bit for bit, into a fresh tensor and into ``out``;
+    a wrong vector raises."""
+    m, cfg, u, free, cact, jact = _chain_case(cuda_device)
+    mc, *_ = _chain_case("cpu")
+    op = ChainOperator(m.chain, free, cact, jact, cfg.reg)
+    before = launch_counts()["chain_matvec"]
+    for bc in (True, False):
+        p = chain_matvec_plain(mc.chain, u.cpu(), free.cpu(), cact.cpu(),
+                               jact.cpu(), cfg.reg, bc)
+        assert torch.equal(op.apply(u, bc).cpu(), p)
+        out = torch.full_like(u, float("nan"))
+        assert op.apply(u, bc, out=out) is out and torch.equal(out.cpu(), p)
+    assert launch_counts()["chain_matvec"] == before + 4
+    with pytest.raises(ValueError):
+        op.apply(u.double(), True)
+    with pytest.raises(ValueError):
+        op.apply(u, True, out=u)
+    with pytest.raises(ValueError):
+        op.apply(u.cpu(), True)
+    with pytest.raises(ValueError):
+        ChainOperator(m.chain, free.double(), cact, jact, cfg.reg)
 
 
 def _pcr_case(device):
@@ -346,18 +373,27 @@ def test_cg_coarse_solve_goes_through_k5(cuda_device):  # noqa: F811
 
 
 def _tree_case(device, n_nodes=7375, frac=0.05, max_iter=20000,
-               rough=False, min_levels=1):
-    """K6's inputs for a cold cg + tree solve of the full ramp system on a
-    synthetic mesh, a fraction of the elements fractured and the islands
-    pinned. ``rough``: zero load and a random start instead, so that one
-    iteration moves x by alpha·M^-1(-A x0), one apply of the factored
-    preconditioner on a vector with no smoothness."""
+               rough=False, min_levels=1, window=None):
+    """K6's launch and the arguments of a cold cg + tree solve of the full
+    ramp system on a synthetic mesh, a fraction of the elements fractured
+    and the islands pinned. ``rough``: zero load and a random start
+    instead, so that one iteration moves x by alpha·M^-1(-A x0), one apply
+    of the factored preconditioner on a vector with no smoothness.
+    ``window``: a launch whose tables were cut for that window instead of
+    the kernel's own, so that the levels with a longer path keep the global
+    rounds."""
     coords, conn = synthetic_mesh(n_nodes)
     cfg = FeaConfig(dtype="float32", operator="chain", precond="tree",
                     grip_length=grip_for(coords), rtol=1e-6,
                     tree_reg_rel=1e-7, max_iter=max_iter)
     m = build_model(coords, conn, cfg, device)
     assert m.tree_kernel and len(m.tree.meta.level_steps) >= min_levels
+    launch = m.tree_launch
+    if window is not None:
+        launch = TreeCgLaunch(
+            m.chain, m.tree, m.tree_fast,
+            build_tree_kernel_tables(m.tree, m.conn, window=window), m.conn,
+            m.top_nodes, m.bot_nodes)
     rng = np.random.default_rng(2)
     act_np = rng.random(m.n_elems) >= frac
     grip = (m.top_nodes | m.bot_nodes).cpu().numpy()
@@ -366,8 +402,9 @@ def _tree_case(device, n_nodes=7375, frac=0.05, max_iter=20000,
     x0 = torch.as_tensor(rng.standard_normal((m.n_nodes, 3)) * rough,
                          dtype=torch.float32, device=device)
     dy = 0.0 if rough else 0.02
-    return tree_cg_inputs(m, torch.as_tensor(act_np, device=device), dy,
-                          -dy, x0, cfg, anch)
+    return launch, (torch.as_tensor(act_np, device=device),
+                    m.free_nodes & anch, dy, -dy, x0, cfg.rtol, cfg.reg,
+                    preconditioner_reg(m, cfg), cfg.max_iter)
 
 
 # K6 after one iteration or one apply, as a share of the largest entry.
@@ -384,15 +421,14 @@ ONE_STEP_TOL = 5e-4
 ONE_STEP_TOL_SEQUENTIAL = 1e-6
 
 
-def _one_step(args):
+def _one_step(launch, args):
     """(share against plain on the card, share against plain on the CPU)
     of the change of x over one iteration."""
-    args = list(args)
-    args[-1] = 1
-    start = args[5] * args[4]            # free·x0, what every side starts from
-    xk, sk = tree_cg(*args)
-    xp, sp = tree_cg_plain(*args)
-    xc, sc = tree_cg_plain(*moved(args, "cpu"))
+    args = args[:-1] + (1,)
+    start = args[1][:, None] * args[4]   # free·x0, what every side starts from
+    xk, sk = launch.solve(*args)
+    xp, sp = launch.plain(*args)
+    xc, sc = launch.on("cpu").plain(*moved(args, "cpu"))
     assert int(sk[0]) == int(sp[0]) == int(sc[0]) == 1
     dk, dc = (xk - start).cpu(), xc - start.cpu()
     assert float(dc.abs().max()) > 0
@@ -404,16 +440,19 @@ def test_tree_cg_matches_plain(cuda_device, frac):  # noqa: F811
     """K6 against its plain version after 1 iteration (ONE_STEP_TOL of
     max |x| on the card, ONE_STEP_TOL_SEQUENTIAL on the CPU) and converged
     (1e-5, iterations within 1), where CG has damped the difference."""
-    args = _tree_case(cuda_device, frac=frac, min_levels=3)
+    launch, args = _tree_case(cuda_device, frac=frac, min_levels=3)
     before = launch_counts()["tree_cg"]
-    card, cpu = _one_step(args)
+    card, cpu = _one_step(launch, args)
     assert launch_counts()["tree_cg"] == before + 1
     assert card <= ONE_STEP_TOL and cpu <= ONE_STEP_TOL_SEQUENTIAL
-    xk, sk = tree_cg(*args)
-    xp, sp = tree_cg_plain(*args)
+    xk, sk = launch.solve(*args)
+    xp, sp = launch.plain(*args)
     assert float(sk[1]) <= float(sk[2]) and float(sp[1]) <= float(sp[2])
     assert 1 <= int(sk[0]) < 50 and abs(int(sk[0]) - int(sp[0])) <= 1
     assert rel_err(xk.cpu(), xp.cpu()) <= 1e-5
+    # every level windowed: one barrier a level to factor
+    assert all(launch.tables.windowed)
+    assert launch.last_barriers() == barrier_count(launch.tables, int(sk[0]))
 
 
 @pytest.mark.parametrize("frac", [0.0, 0.05])
@@ -426,42 +465,116 @@ def test_tree_cg_one_apply_matches_plain(cuda_device, n_nodes,  # noqa: F811
     iteration, the change of x. On the deeper forest also the load case
     after one iteration."""
     levels = {7375: 3, 33000: 5}[n_nodes]
-    card, cpu = _one_step(_tree_case(cuda_device, n_nodes, frac, rough=True,
-                                     min_levels=levels))
+    card, cpu = _one_step(*_tree_case(cuda_device, n_nodes, frac, rough=True,
+                                      min_levels=levels))
     assert card <= ONE_STEP_TOL and cpu <= ONE_STEP_TOL_SEQUENTIAL
     if n_nodes == 33000:
-        card, cpu = _one_step(_tree_case(cuda_device, n_nodes, frac,
-                                         min_levels=levels))
+        card, cpu = _one_step(*_tree_case(cuda_device, n_nodes, frac,
+                                          min_levels=levels))
         assert card <= ONE_STEP_TOL and cpu <= ONE_STEP_TOL_SEQUENTIAL
 
 
+@pytest.mark.parametrize("frac", [0.0, 0.05])
+@pytest.mark.parametrize("n_nodes", [7375, 33000])
+def test_tree_cg_setup_matches_plain(cuda_device, n_nodes,  # noqa: F811
+                                     frac):
+    """The kernel's set-up phase, launched alone, against the plain set-up
+    on the CPU on copies of the same inputs: the masks, the prescribed
+    values, the start vector, the forest diagonal (its jump terms added in
+    the CSR's order, which is a sequential index_add_'s), the left-edge and
+    the attachment couplings: equal values, tolerance 0."""
+    launch, args = _tree_case(cuda_device, n_nodes, frac, rough=True)
+    active, free, _, _, x0, _, _, reg_pc, _ = args
+    got = launch.setup(active, free, 0.013, -0.007, x0, reg_pc)
+    want = launch.on("cpu").setup(active.cpu(), free.cpu(), 0.013, -0.007,
+                                  x0.cpu(), reg_pc)
+    assert set(got) == set(want)
+    for name in want:
+        assert got[name].shape == want[name].shape, name
+        assert bool((got[name].cpu() == want[name]).all()), name
+
+
+@pytest.mark.parametrize("window", [16, 64])
+def test_tree_cg_global_rounds_match_windowed(cuda_device,  # noqa: F811
+                                              window):
+    """A launch whose tables leave the levels with a path longer than
+    ``window`` on global rounds (one barrier a round, halo windows in the
+    apply) against the plain version on the CPU and against the all-windowed
+    launch: the two forms compute the same numbers."""
+    launch, args = _tree_case(cuda_device, frac=0.05)
+    forced, _ = _tree_case(cuda_device, frac=0.05, window=window)
+    assert not all(forced.tables.windowed) and any(forced.tables.windowed)
+    card, cpu = _one_step(forced, args)
+    assert card <= ONE_STEP_TOL and cpu <= ONE_STEP_TOL_SEQUENTIAL
+    xw, sw = launch.solve(*args)
+    xg, sg = forced.solve(*args)
+    assert int(sw[0]) == int(sg[0])
+    assert rel_err(xg.cpu(), xw.cpu()) <= 1e-6
+    assert forced.last_barriers() == barrier_count(forced.tables, int(sg[0]))
+    assert forced.last_barriers() > launch.last_barriers()
+
+
 def test_tree_cg_is_deterministic(cuda_device):  # noqa: F811
-    """No float atomics: two launches on the same inputs give the same x
-    and the same stats, bit for bit."""
-    args = _tree_case(cuda_device)
-    x1, s1 = tree_cg(*args)
-    x2, s2 = tree_cg(*args)
+    """No float atomics, in the set-up neither: two launches on the same
+    inputs give the same x and the same stats, bit for bit; the two results
+    are different buffers."""
+    launch, args = _tree_case(cuda_device)
+    x1, s1 = launch.solve(*args)
+    x2, s2 = launch.solve(*args)
+    assert x1.data_ptr() != x2.data_ptr()
     assert torch.equal(x1, x2) and torch.equal(s1, s2)
 
 
+def test_tree_cg_consecutive_solves_keep_no_state(cuda_device):  # noqa: F811
+    """Two consecutive solves of one launch with different masks and
+    prescribed values equal two solves of fresh launches: nothing of the
+    first is left in the scratch, and the first result is still intact
+    after the second."""
+    launch, a1 = _tree_case(cuda_device, frac=0.05)
+    _, a2 = _tree_case(cuda_device, frac=0.0)
+    a2 = a2[:2] + (0.011, -0.017) + a2[4:]
+    x1, s1 = launch.solve(*a1)
+    x2, s2 = launch.solve(*a2)
+    f1, _ = _tree_case(cuda_device)
+    f2, _ = _tree_case(cuda_device)
+    y1, t1 = f1.solve(*a1)
+    y2, t2 = f2.solve(*a2)
+    assert torch.equal(x1, y1) and torch.equal(s1, t1)
+    assert torch.equal(x2, y2) and torch.equal(s2, t2)
+    assert not torch.equal(x1, x2)
+
+
 def test_tree_cg_rejects_bad_tensors(cuda_device):  # noqa: F811
-    args = list(_tree_case(cuda_device, 3000))
+    launch, args = _tree_case(cuda_device, 3000)
+    args = list(args)
     bad = list(args)
-    bad[3] = args[3].double()                # uk
+    bad[4] = args[4].double()                # x0
     with pytest.raises(ValueError):
-        tree_cg(*bad)
+        launch.solve(*bad)
     bad = list(args)
-    bad[8] = args[8].T.contiguous().T        # d9: (9, S) but not contiguous
+    bad[4] = args[4].T.contiguous().T        # x0: (N, 3) but not contiguous
     with pytest.raises(ValueError):
-        tree_cg(*bad)
+        launch.solve(*bad)
     bad = list(args)
-    bad[10] = args[10][:-1].contiguous()     # katt of the wrong size
+    bad[1] = args[1][:-1].contiguous()       # free of the wrong size
     with pytest.raises(ValueError):
-        tree_cg(*bad)
+        launch.solve(*bad)
     bad = list(args)
-    bad[2] = dataclasses.replace(args[2], ordered=False)
+    bad[0] = args[0].cpu()                   # active on the host
     with pytest.raises(ValueError):
-        tree_cg(*bad)
+        launch.solve(*bad)
+    unordered = TreeCgLaunch(
+        launch.cplan, launch.tplan, launch.fast,
+        dataclasses.replace(launch.tables, ordered=False), launch.conn,
+        launch.top_nodes, launch.bot_nodes)
+    with pytest.raises(ValueError):
+        unordered.solve(*args)
+    short = TreeCgLaunch(
+        launch.cplan, launch.tplan, launch.fast,
+        dataclasses.replace(launch.tables, fg=launch.tables.fg[:-1]),
+        launch.conn, launch.top_nodes, launch.bot_nodes)
+    with pytest.raises(ValueError):
+        short.solve(*args)
 
 
 def test_cg_tree_solve_goes_through_k6(cuda_device):  # noqa: F811

@@ -101,6 +101,93 @@ def level0(seed, frac, dtype="float64", device="cpu", mesh=None):
         meta.level_steps[0]
 
 
+def all_levels(model, active, free, reg_pc):
+    """[(D, B, fg, lg, steps)] of every level as the all-PCR factorization
+    (what K6 factors) hands them to ``pcr_factor``: the diagonal with the
+    earlier levels' Schur corrections, the left couplings with their fill
+    edges, the paths' first and last slots within the level."""
+    from dataclasses import replace
+    from mycelium_tpu_torch.fea import tree_factor as tf
+    from mycelium_tpu_torch.fea.chain import plan_active_masks_bool
+    plan = replace(model.tree, meta=replace(model.tree.meta, n_pcr=-1))
+    cab, jab = plan_active_masks_bool(model.chain, active)
+    D, B, katt = tf.tree_factor_inputs(
+        plan, model.tree_fast, model.chain, active, free,
+        free[model.chain.perm], reg_pc, model.conn, cab, jab)
+    seen = []
+    real = tf.pcr_factor
+
+    def record(D_l, B_l, fg, lg, steps):
+        seen.append((D_l, B_l, fg, lg, steps))
+        return real(D_l, B_l, fg, lg, steps)
+
+    tf.pcr_factor = record
+    try:
+        tf.tree_factor_levels(plan, D, B, katt, len(plan.meta.level_steps))
+    finally:
+        tf.pcr_factor = real
+    return seen
+
+
+def emulate_tree_setup(launch, active, free, dy_top, dy_bot, x0, reg_pc):
+    """K6's set-up phase (csrc/tree_cg.cu::setup_phase) in numpy, from the
+    tables the kernel is handed and in its order of operations, one
+    rounding an operation in the model's dtype; the jump terms of the
+    diagonal are added one after another in the order of the per-node jump
+    CSR. Returns the dict ``TreeCgLaunch.setup`` returns."""
+    cp, k, tk, fast = launch.cplan, launch.cplan.k32, launch.tables, \
+        launch.fast
+    dt = np_of(cp.chain_kbd).dtype.type
+    n, S, P, E = launch.n, launch.S, launch.P, launch.n_elems
+    active, free = np_of(active).astype(bool), np_of(free).astype(bool)
+    perm = np_of(k.perm)
+
+    def elem_active(e):
+        e = np_of(e)
+        return (e >= 0) & (e < E) & active[np.clip(e, 0, max(E - 1, 0))]
+
+    def edge_k3(pack, kbd, m):
+        pack, kbd = np_of(pack), np_of(kbd)
+        kd = (pack[:, 3] - kbd) * m
+        kb = kbd * m
+        planes = []
+        for i in range(3):
+            for j in range(3):
+                v = pack[:, i] * pack[:, j] * kd
+                planes.append(v + kb if i == j else v)
+        return np.stack(planes)
+
+    fr = free[perm]
+    freem = fr.astype(dt)
+    cab, jab = elem_active(k.chain_elem), elem_active(k.jump_elem)
+    uy = np_of(launch.top_nodes)[perm].astype(dt) * dt(dy_top) \
+        + np_of(launch.bot_nodes)[perm].astype(dt) * dt(dy_bot)
+    uk = np.stack([np.zeros_like(uy), uy, np.zeros_like(uy)])
+    x = freem * np_of(x0).astype(dt)[perm].T + (dt(1) - freem) * uk
+    kc = edge_k3(k.chain_pack, cp.chain_kbd,
+                 (cab & np_of(fast.chain_tree)).astype(dt))
+    km = np.concatenate([np.zeros((9, 1), dt), kc[:, :-1]], axis=1)
+    kj = edge_k3(k.jump_pack, cp.jump_kbd,
+                 (jab & np_of(fast.jump_tree)).astype(dt))
+    jptr, jent = np_of(k.jump_ptr), np_of(k.jump_ent)
+    acc = np.zeros((9, S), dt)
+    for q in np.nonzero(np.diff(jptr)[:S])[0]:
+        for e in range(jptr[q], jptr[q + 1]):
+            acc[:, q] = acc[:, q] + kj[:, jent[e] >> 1]
+    p = kc[:, :S] + km[:, :S]
+    p = p + acc
+    d9 = np.stack([np.where(fr[:S], p[c] + dt(reg_pc), dt(1)) if c % 4 == 0
+                   else np.where(fr[:S], p[c], dt(0)) for c in range(9)])
+    fprev = np.concatenate([[False], fr[:S][:-1]]) if S else fr[:0]
+    m = (elem_active(tk.left_elem) & fr[:S] & fprev).astype(dt)
+    bel = -np_of(fast.left_k3) * m
+    ok = elem_active(tk.att_elem) & free[np_of(tk.att_na)] \
+        & free[np_of(tk.att_nb)]
+    katt = (-np_of(tk.att_k3) * ok.astype(dt)[:, None]).reshape(P, 2, 3, 3)
+    return dict(uk=uk, x=x, freem=freem, cact=cab.astype(dt),
+                jact=jab.astype(dt), d9=d9, bel=bel, katt=katt)
+
+
 class JaxDraws:
     """A draw source (mycelium_tpu_torch/growth/draws.py) that replays the
     JAX package's key chain, so the port sees the reference's numbers:
