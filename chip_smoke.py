@@ -15,9 +15,12 @@ fails (non-zero exit) if any phase fails:
    over back-to-back calls: the larger of the device's time and the host's
    time to submit a call) and ``device_ms``, the kernels' own duration
    from ``torch.profiler``; K1 through its bound operator;
-4. compare K5 with its plain version on the 22,125-DOF mesh (after 1 and
-   10 iterations, const and linear basis; converged; two launches equal),
-   and time both;
+4. compare K5 with its plain version on the CPU on copies of the same
+   inputs, on the 22,125-DOF mesh 5% fractured: the set-up bit for bit
+   (masks, start vector, block-Jacobi inverse, coarse matrix and inverse),
+   x after 1 and 10 iterations (const and linear basis) and converged; two
+   launches equal; its barriers by the rule; time both, with the latency
+   floor (iterations x three barriers x the barrier's cost at K5's grid);
 5. compare K6 with its plain version on the 22,125-DOF mesh, intact and 5%
    fractured with the islands pinned (the set-up phase's outputs against
    the plain set-up; one preconditioner apply on a random vector, the load
@@ -32,7 +35,10 @@ fails (non-zero exit) if any phase fails:
    309k DOF, the same preconditioner on both sides, iterations and the
    float64 residual beside each time; this (and ``profile_fea.py`` on
    larger meshes) is what the memory guard ``TREE_KERNEL_MAX_BYTES`` rests
-   on;
+   on; and K5 as in phase 4 (the set-up bit for bit, x after 1 and 10
+   iterations) at the shapes of the sweep path's 309k-DOF solve, on its
+   own inputs: 403 clusters on fewer resident blocks, so a block loops
+   over clusters, and the Gauss-Jordan inverse at nc 1,209;
 7. the FEA path, launch counts set to 0 before and read after: a cold
    solve at 22,125 DOF through K6, checked in float64 against the
    stiffness assembled with scipy, the 40-step ramp (steps 1-3 against the
@@ -43,7 +49,10 @@ fails (non-zero exit) if any phase fails:
    cannot run K6 takes it: K1-K3's launches are read here;
 8. the sweep path, counts set to 0 before and read after: cg + coarse cold
    solves through K5 (median of 5 at 22,125 DOF with the float64 residual
-   check, one at 309k DOF), then the 15-combination solver x
+   check, one at 309k DOF; in the traced tail, the device operations and
+   host syncs of one such solve, at most 12 and 1, and two fresh model
+   builds, equal iterations and x bit for bit), then the 15-combination
+   solver x
    preconditioner sweep on the 22,125-DOF mesh, its cg + tree leg and
    physics solve through K6, its other tree legs through the hybrid
    (K1-K3);
@@ -57,11 +66,11 @@ fails (non-zero exit) if any phase fails:
    counts set to 0 before and read after: grow -> mesh -> model on the
    card -> cold solve (float64 residual check) -> 40-step ramp, the
    solves through K6 where the model can run it;
-13. every reading that traces the card (each kernel's ``device_ms``, K6's
-   time by iteration cap, the device operations and host syncs of a K6
-   solve), last: a ``torch.profiler`` window slows every later launch of
-   the process on the host, so it may not precede a phase that is timed
-   on the host's clock.
+13. every reading that traces the card (each kernel's ``device_ms``, K5's
+   and K6's time by iteration cap, the device operations and host syncs of
+   a K5 and a K6 solve, K5's fresh builds), last: a ``torch.profiler``
+   window slows every later launch of the process on the host, so it may
+   not precede a phase that is timed on the host's clock.
 
 The last lines are the card again, one JSON object with the kernels'
 numbers, and ``{"ok": true, "device": {...}}``. Needs one CUDA card; with
@@ -69,7 +78,7 @@ none it exits non-zero and prints no result. No JAX is imported.
 
 Time: the whole run must end within 1200 s, the kernels' build included;
 phases 4 and 8 (K5 and the sweep) have a budget of 90 s of it. On an
-H100 the run takes 60 to 80 s.
+H100 the run took 95 to 109 s before K5's 309k comparison was added.
 """
 
 from __future__ import annotations
@@ -99,7 +108,8 @@ F32_MARGIN = 5e-5
 # the float64 residual bound of a tree-PC solve, which may stop on a
 # plateau within 10 (STALL_ACCEPT) times its tolerance
 STALL_LIMIT = 10.0 * RTOL + F32_MARGIN
-# K5 and K6 stop only on their tolerance: no stall exit
+# K5 stops only on its tolerance (no stall exit); K6's solves here stop on
+# theirs too, well before its stall exit could fire
 K5_LIMIT = SWEEP_RTOL + F32_MARGIN
 K6_LIMIT = RTOL + F32_MARGIN
 GROWTH_STEPS = 150     # xlarge steps (the preset's full run)
@@ -760,18 +770,94 @@ def k5_config(**overrides):
     return FeaConfig(**base)
 
 
-def compare_chain_cg(model, conn, cfg, device, rng) -> dict:
-    """Phase 4: K5 against its plain version on the card, on the full ramp
-    system of the mesh with 5% of its elements fractured (islands pinned):
-    after 1 and 10 iterations, const and linear basis, x within 1e-5 of
-    max |x| (the same float32 operations; sums in float64 on both sides,
-    in another order); converged, x within 1e-3 and the iterations within
-    2% (roundoff steers two float32 CG runs apart over hundreds of
-    iterations); two launches bit-equal (no float atomics)."""
+# K5 against its plain version run on the CPU on copies of the same inputs
+# (the set-up, the coarse inverse included, adds in the kernel's order
+# there): the set-up bit for bit; x after 1 and 10 iterations and converged
+# within a few float32 ulps of max |x| (the dots and the coarse rows add in
+# float64 in another order, so a sum near a float32 boundary may round
+# apart; 0 in every recorded run)
+K5_TOL_SEQUENTIAL = 1e-6
+# device operations and host syncs one cg + coarse solve may take
+K5_MAX_DEVICE_OPS = 12
+K5_MAX_HOST_SYNCS = 1
+
+
+def k5_work(launch, cfg, iters: int) -> tuple:
+    """(bytes, operations) of one K5 solve that takes ``iters``
+    iterations. Bytes: the static tables and the coarse plan read once, the
+    solve's inputs read once, x and the stats written once
+    (``ChainCgLaunch.io_bytes``). Operations (float32 and float64 alike):
+    the set-up (~160 a position for the diagonal block and its inverse, 30
+    a jump entry, ~12 a coarse contribution and entry, 2·nc² to normalise),
+    the Gauss-Jordan inverse (2·nc³), then per iteration ~146 a position
+    (operator 45 with each slot force once, block-Jacobi 15, restriction
+    and prolongation 24, dots and updates 62), 30 a jump entry and 2·nc²
+    for the coarse rows."""
+    from mycelium_tpu_torch.kernels.chain_cg import layout_of
+    nbc, width, nbas = layout_of(launch.n, cfg)
+    plan = launch.plans.get(nbc, width, nbas)
+    nc, n = plan.nc, launch.n
+    nj = launch.cplan.jump_ent.shape[0]
+    d = 3 * nbas
+    setup = 160 * n + 30 * nj + 12 * plan.blk_ent.shape[0] * d * d \
+        + 2 * nc * nc
+    ops = setup + 2 * nc ** 3 + iters * (146 * n + 30 * nj + 2 * nc * nc)
+    return launch.io_bytes(nbc, width, nbas), ops
+
+
+def k5_against_cpu(launch, cpu, args, cfg, tag: str) -> float:
+    """K5 against its plain version on the CPU on copies of the same
+    inputs (``args`` = active, anchored, dy_top, dy_bot, x0 on the card):
+    the set-up (masks, prescribed values, start vector, block-Jacobi
+    inverse, coarse matrix, its scaling and inverse) bit for bit, then x
+    after 1 and 10 iterations from that set-up within K5_TOL_SEQUENTIAL,
+    the iterations equal. Returns the largest error of x."""
+    from mycelium_tpu_torch.devices import moved
+    cpu_in = moved(args, "cpu")
+    got = launch.setup(*args, cfg)
+    want = cpu.setup(*cpu_in, cfg)
+    bad = [k for k in want if got[k].shape != want[k].shape
+           or not bool((got[k].cpu() == want[k]).all())]
+    worst = max(float((got[k].cpu().double() - want[k].double()).abs()
+                      .max()) for k in want)
+    log(f"{tag}, set-up against the plain set-up on the CPU "
+        f"({', '.join(sorted(want))}): max_abs_err={worst:.3e} (tol 0)")
+    if bad or set(got) != set(want):
+        raise AssertionError(f"{tag}: the set-up disagrees in {bad}")
+    err_max = 0.0
+    for it in (1, 10):
+        ci = dataclasses.replace(cfg, max_iter=it)
+        xk, sk = launch.solve(*args, ci)
+        xc, sc = cpu.plain(*cpu_in, ci, setup=want)
+        err, rel = rel_err([xk.cpu()], [xc])
+        log(f"{tag}, {it} iterations against plain on the CPU: "
+            f"max_abs_err={err:.3e} rel={rel:.3e} (tol "
+            f"{K5_TOL_SEQUENTIAL:.0e}), |r| {float(sk[1]):.6e} vs "
+            f"{float(sc[1]):.6e}")
+        if not (rel <= K5_TOL_SEQUENTIAL
+                and int(sk[0]) == int(sc[0]) == it):
+            raise AssertionError(f"{tag} after {it} iterations disagrees: "
+                                 f"rel {rel:.3e}")
+        err_max = max(err_max, err)
+    return err_max
+
+
+def compare_chain_cg(model, conn, cfg, device, rng, barrier_us) -> dict:
+    """Phase 4: K5 against its plain version on the CPU on copies of the
+    same inputs, on the full ramp system of the mesh with 5% of its
+    elements fractured (islands pinned), const and linear basis: the
+    set-up bit for bit and x after 1 and 10 iterations (``k5_against_cpu``);
+    converged (const), the iterations equal, within K5_TOL_SEQUENTIAL; two
+    launches bit-equal (no float atomics). Times the kernel, its plain
+    version and, deferred to the traced tail, its device time by iteration
+    cap; the latency floor is the iterations times three barriers times
+    the barrier's cost at K5's grid (``barrier_us``)."""
     import torch
-    from mycelium_tpu_torch.fea.chain_solve import chain_cg_inputs
+    from mycelium_tpu_torch.devices import moved
     from mycelium_tpu_torch.fea.ramp import anchored_mask_host
-    from mycelium_tpu_torch.kernels import chain_cg, chain_cg_plain
+    from mycelium_tpu_torch.kernels.chain_cg import barrier_count, layout_of
+    launch = model.chain_launch
+    cpu = launch.on("cpu")
     active_np = rng.random(model.n_elems) > 0.05
     grip = (model.top_nodes | model.bot_nodes).cpu().numpy()
     anch = torch.as_tensor(anchored_mask_host(np.asarray(conn), active_np,
@@ -779,65 +865,76 @@ def compare_chain_cg(model, conn, cfg, device, rng) -> dict:
     active = torch.as_tensor(active_np, device=device)
     x0 = torch.zeros((model.n_nodes, 3), dtype=model.dtype, device=device)
     dy = cfg.displacement_max
-    err_max = 0.0
-    for basis in ("const", "linear"):
-        args = list(chain_cg_inputs(
-            model, active, dy, -dy, x0,
-            dataclasses.replace(cfg, coarse_basis=basis), anch))
-        for it in (1, 10):
-            args[-1] = it
-            (xk, sk), (xp, sp) = chain_cg(*args), chain_cg_plain(*args)
-            err, rel = rel_err([xk], [xp])
-            log(f"K5 chain_cg {basis} basis, {it} iterations: "
-                f"max_abs_err={err:.3e} rel={rel:.3e} (tol 1e-5), |r| "
-                f"{float(sk[1]):.6e} vs plain {float(sp[1]):.6e}")
-            if not (rel <= 1e-5 and int(sk[0]) == int(sp[0]) == it):
-                raise AssertionError(f"K5 {basis} after {it} iterations "
-                                     f"disagrees: rel {rel:.3e}")
-            err_max = max(err_max, err)
-    args = chain_cg_inputs(model, active, dy, -dy, x0, cfg, anch)
-    (xk, sk), (xp, sp) = chain_cg(*args), chain_cg_plain(*args)
-    xk2, sk2 = chain_cg(*args)
+    cpu_in = moved((active, anch), "cpu")
+    err_max = max(k5_against_cpu(
+        launch, cpu, (active, anch, dy, -dy, x0),
+        dataclasses.replace(cfg, coarse_basis=basis),
+        f"K5 chain_cg {basis} basis") for basis in ("const", "linear"))
+    xk, sk = launch.solve(active, anch, dy, -dy, x0, cfg)
+    xk, sk = xk.clone(), sk.clone()
+    xk2, sk2 = launch.solve(active, anch, dy, -dy, x0, cfg)
+    sync(device)
     same = torch.equal(xk, xk2) and torch.equal(sk, sk2)
-    ik, ip = int(sk[0]), int(sp[0])
-    conv = float(sk[1]) <= float(sk[2]) and float(sp[1]) <= float(sp[2])
-    err, rel = rel_err([xk], [xp])
-    log(f"K5 chain_cg converged {conv}: {ik} iterations (plain {ip}), "
-        f"max_abs_err={err:.3e} rel={rel:.3e} (tol 1e-3), two launches "
-        f"bit-equal: {same}; grid {grid_blocks_of(device)} blocks")
-    if not (conv and same and abs(ik - ip) <= 0.02 * ip and rel <= 1e-3):
-        raise AssertionError("K5 disagrees with its plain version or "
-                             "is not deterministic")
-    ms = timed_ms(lambda: chain_cg(*args), device, 5)
-    pms = timed_ms(lambda: chain_cg_plain(*args), device, 1)
-    # the function's bytes: each input read once (the operator's and the
-    # preconditioner's tables: masks, block inverse, coarse inverse; uk,
-    # x0) and x written once. Its float32 operations, this run's
-    # iterations times ~146 a position (matvec 65, block-Jacobi 15,
-    # restriction and prolongation 24, four dots 24, three updates 18), 30
-    # a jump entry and 2·nc² for the coarse product. Beside it, the
-    # streaming figure: an iteration's tables and x, r, p in and out from
-    # memory, times the iterations.
-    plan, uk, x0, freem, cact, jact, c9, ainv = args[:8]
-    n, nc = model.n_nodes, ainv.shape[0]
-    tables = nbytes(plan.chain_n, plan.chain_kax, plan.chain_kbd,
-                    plan.jump_n, plan.jump_kax, plan.jump_kbd, plan.ja,
-                    plan.jb, plan.jump_ptr, plan.jump_ent, freem, cact,
-                    jact, c9, ainv)
-    per_ops = 146 * n + 30 * plan.jump_ent.shape[0] + 2 * nc * nc
-    b5 = bound(tables + nbytes(uk, x0, xk), per_ops * ik)
-    stream = bound((tables + 2 * 3 * 3 * n * 4) * ik, 0)[0]
+    xc, sc = cpu.plain(*cpu_in, dy, -dy, x0.cpu(), cfg)
+    ik, ic = int(sk[0]), int(sc[0])
+    conv = float(sk[1]) <= float(sk[2]) and float(sc[1]) <= float(sc[2])
+    err, rel = rel_err([xk.cpu()], [xc])
+    nbc, width, nbas = layout_of(launch.n, cfg)
+    nc = launch.plans.get(nbc, width, nbas).nc
+    nbar = launch.last_barriers() if device.type == "cuda" else 0
+    grid = launch._bound[(nbc, width, nbas)]["grid"] \
+        if device.type == "cuda" else 0
+    log(f"K5 chain_cg converged {conv}: {ik} iterations (plain on the CPU "
+        f"{ic}), max_abs_err={err:.3e} rel={rel:.3e} (tol "
+        f"{K5_TOL_SEQUENTIAL:.0e}), two launches bit-equal: {same}; grid "
+        f"{grid} blocks for {nbc} clusters of {width}, nc {nc}, {nbar} "
+        f"grid-wide barriers ({barrier_count(nc, ik)} by the rule)")
+    if not (conv and same and ik == ic and rel <= K5_TOL_SEQUENTIAL):
+        raise AssertionError("K5 disagrees with its plain version on the "
+                             "CPU or is not deterministic")
+    if device.type == "cuda" and nbar != barrier_count(nc, ik):
+        raise AssertionError(f"K5: {nbar} barriers, the rule says "
+                             f"{barrier_count(nc, ik)}")
+    err_max = max(err_max, err)
+
+    def solve(c=cfg):
+        return launch.solve(active, anch, dy, -dy, x0, c)
+
+    ms = timed_ms(solve, device, 5)
+    pms = timed_ms(lambda: cpu.plain(*cpu_in, dy, -dy, x0.cpu(), cfg),
+                   torch.device("cpu"), 1)
+    io, ops = k5_work(launch, cfg, ik)
+    b5 = bound(io, ops)
+    us = barrier_us.get(grid, 0.0) if barrier_us else 0.0
+    floor = barrier_count(nc, ik) * us * 1e-3
     log(f"K5 time call {ms:.4f} ms a solve ({ik} iterations, "
-        f"{ms * 1e3 / max(ik, 1):.2f} us an iteration; plain {pms:.4f} ms, "
-        f"bound {b5[0]:.5f} ms by {b5[1]}: {per_ops / 1e6:.3f} Mop an "
-        f"iteration; streaming an iteration's {tables / 2**20:.3f} MiB of "
-        f"tables and the vectors from memory {stream:.5f} ms; nc {nc})")
+        f"{ms * 1e3 / max(ik, 1):.2f} us an iteration; plain on the CPU "
+        f"{pms:.4f} ms, bound {b5[0]:.5f} ms by {b5[1]}: {io / 2**20:.3f} "
+        f"MiB, {ops / 1e6:.3f} Mop; latency floor {floor:.4f} ms: "
+        f"{barrier_count(nc, ik)} barriers at {us:.3f} us)")
     row = dict(name="chain_cg", route="cuda",
                source="mycelium_tpu_torch/kernels/csrc/chain_cg.cu",
                replaces="mycelium_tpu/fea/pallas_cg.py:196",
-               max_abs_err=max(err_max, err), ms=ms, plain_ms=pms,
-               bound_ms=b5[0], bound_by=b5[1], library_ms=None)
-    defer_device_ms("K5", row, lambda: chain_cg(*args), 5)
+               max_abs_err=err_max, ms=ms, plain_ms=pms, bound_ms=b5[0],
+               bound_by=b5[1], library_ms=None, iterations=ik,
+               barriers=barrier_count(nc, ik), grid=grid,
+               latency_floor_ms=floor)
+    defer_device_ms("K5", row, solve, 5)
+
+    def by_cap(device):
+        """K5's device time with the iteration cap at 0 (the set-up and
+        the coarse inverse), 1 and 10, beside converged, and its slope."""
+        cap = {c: device_ms(lambda c=c: solve(dataclasses.replace(
+            cfg, max_iter=c)), device, 5) for c in (0, 1, 10)}
+        slope = (row["device_ms"] - cap[10]) * 1e3 / max(ik - 10, 1)
+        log(f"K5 device time by iteration cap: 0 (set-up, coarse inverse) "
+            f"{cap[0]:.4f} ms, 1 {cap[1]:.4f} ms, 10 {cap[10]:.4f} ms, "
+            f"converged ({ik}) {row['device_ms']:.4f} ms: {slope:.2f} us an "
+            f"iteration; latency floor {floor:.4f} ms")
+        row.update(device_ms_cap0=cap[0], device_ms_cap1=cap[1],
+                   device_ms_cap10=cap[10], device_us_per_iteration=slope)
+
+    defer(by_cap)
     return row
 
 
@@ -940,13 +1037,14 @@ def solve_footprint(solve, device, label: str) -> dict:
                 device_busy_ms=prof["device_busy_ms"])
 
 
-def barrier_probe(device) -> dict:
+def barrier_probe(device, extra=()) -> dict:
     """What one grid-wide barrier costs on cooperative grids of 33 to 264
-    blocks of K6's block size with no work between the barriers: the
-    difference of a launch with 2,000 barriers and one with none."""
+    blocks (and ``extra`` sizes) of K5's and K6's block size with no work
+    between the barriers: the difference of a launch with 2,000 barriers
+    and one with none."""
     from mycelium_tpu_torch.kernels.tree_cg import barrier_probe as probe
     out = {}
-    for grid in (33, 66, 132, 264):
+    for grid in sorted({33, 66, 132, 264, *extra}):
         base = timed_ms(lambda: probe(grid, 0, device), device, 20)
         full = timed_ms(lambda: probe(grid, 2000, device), device, 20)
         out[grid] = (full - base) / 2000 * 1e3
@@ -1136,11 +1234,81 @@ def route_compare(model, coords, conn, cfg, device, label: str) -> dict:
     return out
 
 
-def grid_blocks_of(device) -> int:
+def compare_chain_cg_main(model, conn, cfg, device) -> float:
+    """K5 at the shapes of the sweep path's largest solve (the 309k mesh:
+    more clusters than resident blocks, so a block takes several, and the
+    Gauss-Jordan inverse at its full size), on that solve's own inputs
+    (intact, the islands pinned, cold) against its plain version on the
+    CPU: ``k5_against_cpu``. Returns the largest error of x."""
+    import torch
+    from mycelium_tpu_torch.fea.ramp import anchored_mask_host
+    from mycelium_tpu_torch.kernels.chain_cg import layout_of
+    active_np = np.ones(model.n_elems, bool)
+    grip = (model.top_nodes | model.bot_nodes).cpu().numpy()
+    anch = torch.as_tensor(anchored_mask_host(np.asarray(conn), active_np,
+                                              grip), device=device)
+    active = torch.as_tensor(active_np, device=device)
+    x0 = torch.zeros((model.n_nodes, 3), dtype=model.dtype, device=device)
+    dy = cfg.displacement_max
+    nbc, width, _ = layout_of(model.n_nodes, cfg)
+    tag = (f"K5 chain_cg {model.n_dof} DOF ({nbc} clusters of {width} on "
+           f"{k5_grid(model, cfg, device)} blocks)")
+    return k5_against_cpu(model.chain_launch, model.chain_launch.on("cpu"),
+                          (active, anch, dy, -dy, x0), cfg, tag)
+
+
+def k5_grid(model, cfg, device) -> int:
+    """Blocks of K5's cooperative grid for ``model`` under ``cfg``: one a
+    cluster, at most as many as the card holds at once."""
     if device.type != "cuda":
         return 0
-    from mycelium_tpu_torch.kernels.chain_cg import grid_blocks
-    return grid_blocks(device.index or 0)
+    from mycelium_tpu_torch.kernels.chain_cg import layout_of, resident_blocks
+    return min(layout_of(model.n_nodes, cfg)[0],
+               resident_blocks(device.index or 0))
+
+
+def k5_footprint(model, coords, conn, device, out: dict) -> None:
+    """In the traced tail: the device operations and host syncs of one
+    cold cg + coarse ``solve_displacement`` at 22k (at most
+    K5_MAX_DEVICE_OPS and K5_MAX_HOST_SYNCS), and two models built afresh
+    from the same mesh, which must give the same iterations and the same x
+    bit for bit (the set-up adds in a fixed order: no float atomics)."""
+    import torch
+    from mycelium_tpu_torch.config import hybrid_fea_config
+    from mycelium_tpu_torch.fea import build_model, solve_displacement
+    from mycelium_tpu_torch.fea.ramp import anchored_mask_host
+    cfg = k5_config()
+    grip = (model.top_nodes | model.bot_nodes).cpu().numpy()
+    active_np = np.ones(model.n_elems, bool)
+    anch = torch.as_tensor(anchored_mask_host(np.asarray(conn), active_np,
+                                              grip), device=device)
+    active = torch.as_tensor(active_np, device=device)
+    x0 = torch.zeros((model.n_nodes, 3), dtype=model.dtype, device=device)
+    dy = cfg.displacement_max
+    foot = solve_footprint(lambda: solve_displacement(
+        model, active, dy, -dy, x0, cfg, anch), device,
+        "K5 cg+coarse solve 22k")
+    fresh = []
+    for _ in range(2):
+        m = build_model(coords, conn, hybrid_fea_config(warm_start=False),
+                        device)
+        res = solve_displacement(m, active, dy, -dy, x0, cfg, anch)
+        fresh.append((res.iters, res.x.clone()))
+    same = fresh[0][0] == fresh[1][0] and torch.equal(fresh[0][1],
+                                                      fresh[1][1])
+    log(f"K5 two fresh model builds: iterations {fresh[0][0]}, "
+        f"{fresh[1][0]}; x bit-equal: {same}")
+    out.update(k5_solve_device_ops=foot["device_ops"],
+               k5_solve_host_syncs=foot["host_syncs"],
+               k5_fresh_iters=[fresh[0][0], fresh[1][0]],
+               k5_fresh_bit_equal=same)
+    if foot["device_ops"] > K5_MAX_DEVICE_OPS or \
+            foot["host_syncs"] > K5_MAX_HOST_SYNCS:
+        raise AssertionError(f"K5 solve: {foot} exceeds {K5_MAX_DEVICE_OPS} "
+                             f"device operations or {K5_MAX_HOST_SYNCS} host "
+                             "sync")
+    if not same:
+        raise AssertionError("K5: two fresh model builds solve apart")
 
 
 def sweep_path(model, coords, conn, model_b, coords_b, conn_b, grip_b,
@@ -1163,6 +1331,7 @@ def sweep_path(model, coords, conn, model_b, coords_b, conn_b, grip_b,
     out["k5_ms_22k"], out["k5_iters_22k"] = cold_solve(
         model, coords, conn, k5_config(), device,
         "K5 cg+coarse cold solve 22k", 5, limit=K5_LIMIT)
+    defer(lambda dev: k5_footprint(model, coords, conn, dev, out))
     # the same solve on the eager chain path (K1 operator, the
     # preconditioner in PyTorch ops, one host read an iteration; its stall
     # exit may stop it within 10x the tolerance)
@@ -1299,10 +1468,12 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     label = f"{3 * n_small} DOF"
     model = timed_build(coords, conn, cfg, device, label)
     rows22 = compare_kernels(model, coords, conn, cfg, device, rng, "22k")
-    probe = barrier_probe(device) if device.type == "cuda" else {}
+    probe = barrier_probe(device, (k5_grid(model, k5_config(), device),)) \
+        if device.type == "cuda" else {}
     rows = []
     t0 = time.perf_counter()
-    rows.append(compare_chain_cg(model, conn, k5_config(), device, rng))
+    rows.append(compare_chain_cg(model, conn, k5_config(), device, rng,
+                                 probe))
     log(f"K5 comparison phase {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
     rows.append(compare_tree_cg(model, conn, cfg, device, rng, "22k", True))
@@ -1349,6 +1520,12 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     k6_row = next(r for r in rows if r["name"] == "tree_cg")
     k6_row["max_abs_err"] = max(k6_row["max_abs_err"],
                                 *(d["max_abs_err"] for d in deep.values()))
+    # K5 at the shapes of the sweep path's 309k solve
+    t0 = time.perf_counter()
+    k5_row = next(r for r in rows if r["name"] == "chain_cg")
+    k5_row["max_abs_err"] = max(k5_row["max_abs_err"], compare_chain_cg_main(
+        model_b, conn_b, k5_config(grip_length=grip_b), device))
+    log(f"K5 comparison phase, {label_b}, {time.perf_counter() - t0:.2f} s")
     routes["309k"] = route_compare(model_b, coords_b, conn_b, cfg_b, device,
                                    label_b)
 

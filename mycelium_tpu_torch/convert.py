@@ -17,7 +17,7 @@ import torch
 
 from .fea.chain import ChainPlan, jump_csr
 from .fea.elements import ElementGeometry
-from .fea.model import DTYPES, FeaModel, with_tree_kernel
+from .fea.model import DTYPES, FeaModel, with_kernels
 from .fea.tree_factor import (FastFactorData, FastMeta, TreeFactor,
                               TreeMeta, TreePlan)
 from .growth.neighbors import SegGrid, grid_dims
@@ -112,7 +112,7 @@ def model_from_jax(arrays: dict, cfg, device) -> FeaModel:
                     bool(x) for x in a["tree_fast.meta.level_left_fill"]),
                 left_is_chain_shift=bool(
                     a["tree_fast.meta.left_is_chain_shift"])))
-    return with_tree_kernel(FeaModel(
+    return with_kernels(FeaModel(
         coords=f(a["coords"]), conn=i(a["conn"]),
         geom=ElementGeometry(**{k: f(a[f"geom.{k}"]) for k in _GEOM_FIELDS}),
         incident=i(a["incident"]), sign=f(a["sign"]),

@@ -1,6 +1,7 @@
 """FEA model: static mesh data, grip masks and the operator layouts (port of
 ``mycelium_tpu/fea/model.py``), plus the per-node 3x3 diagonal blocks of
-the block-Jacobi preconditioners.
+the block-Jacobi preconditioners and their inverses (K5's plain set-up
+takes its blocks in chain order from ``tree_factor.chain_diag``).
 
 Every model carries the ELL tables, the chain plan and the tree plan under
 the unified tree/chain node order, whatever the configuration: the
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..devices import DEFAULT_DEVICE, resolve
+from .blocks import block_planes
 from .chain import ChainPlan, build_chain_plan, greedy_path_cover
 from .elements import ElementGeometry, element_forces, element_geometry_host
 from .tree import build_tree_schedule, element_k3
@@ -57,6 +59,13 @@ class FeaModel:
     # whatever configuration built it. fea/solve.py::solve_route sends
     # cg + tree on the chain operator there; False leaves it on the hybrid
     tree_kernel: bool = False
+    # the coarse plans by cluster layout (fea/coarse.py::CoarsePlans), each
+    # built at its first use
+    coarse_plans: object | None = None
+    # K5 bound to this model (kernels.ChainCgLaunch): made with every model,
+    # it allocates its scratch and buffers at the model's first cg + coarse
+    # solve
+    chain_launch: object | None = None
 
     @property
     def n_nodes(self) -> int:
@@ -177,14 +186,20 @@ def build_model(coords: np.ndarray, conn: np.ndarray, cfg,
         top_nodes=b(top), bot_nodes=b(bot), free_nodes=b(free),
         chain=ChainPlan.from_host(chain_host, dtype, device),
         tree=tree_plan, tree_fast=tree_fast)
-    return with_tree_kernel(model)
+    return with_kernels(model)
 
 
-def with_tree_kernel(model: FeaModel) -> FeaModel:
-    """``model`` with the whole-solve tree kernel's index tables (where its
-    forest has levels), whether it can run that kernel and, if it can, the
-    kernel's launch bound to it."""
+def with_kernels(model: FeaModel) -> FeaModel:
+    """``model`` with its whole-solve kernels: its coarse plans, K5's
+    launch (bound at its first solve) and, where its forest has levels, the
+    tree kernel's index tables, whether it can run that kernel and, if it
+    can, the kernel's launch bound to it."""
+    from ..kernels.chain_cg import ChainCgLaunch
     from ..kernels.tree_cg import TreeCgLaunch
+    from .coarse import CoarsePlans
+    plans = CoarsePlans(model.chain, model.n_elems)
+    model = replace(model, coarse_plans=plans, chain_launch=ChainCgLaunch(
+        plans, model.free_nodes, model.top_nodes, model.bot_nodes))
     launch = None
     if model.tree.meta.level_steps:
         tables = build_tree_kernel_tables(model.tree, model.conn)
@@ -288,3 +303,9 @@ def invert_blocks(blocks):
                        torch.stack([c10, c11, c12], dim=-1),
                        torch.stack([c20, c21, c22], dim=-1)], dim=1)
     return adj / (det[:, None, None] * scale)
+
+
+def inverse_planes(d9):
+    """The (9, N) planes of the blocks' inverses (``invert_blocks``) from
+    the (9, N) planes of the blocks (``tree_factor.chain_diag``)."""
+    return block_planes(invert_blocks(d9.T.reshape(-1, 3, 3)))

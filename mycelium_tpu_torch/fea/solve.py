@@ -45,9 +45,10 @@ OPERATOR_NAMES = ("chain", "ell", "scatter")
 
 @dataclass(frozen=True)
 class SolveResult:
-    # x: on the route 'tree_cg' on the card a buffer of the model's launch,
-    # valid through the next solve on that model and overwritten by the one
-    # after (kernels.TreeCgLaunch); a caller that keeps it longer copies it
+    # x: on the routes 'tree_cg' and 'chain_cg' on the card a buffer of the
+    # model's launch, valid through the next solve on that model and
+    # overwritten by the one after (kernels.TreeCgLaunch, ChainCgLaunch); a
+    # caller that keeps it longer copies it
     x: torch.Tensor        # (N, 3) solution
     iters: int             # iterations (Arnoldi steps for gmres)
     resnorm: float         # final |r|

@@ -292,21 +292,16 @@ def _pad1(x, value):
     return torch.cat([x, x.new_full((1,) + tuple(x.shape[1:]), value)])
 
 
-def chain_tree_diag(plan: TreePlan, fast: FastFactorData, cplan,
-                    active, free_chain, reg: float, chain_act_b=None,
-                    jump_act_b=None):
-    """(9, N) component planes of the tree-PC diagonal in CHAIN order:
-    chain shifts plus one jump scatter. Pinned rows are identity."""
-    dtype = plan.k3.dtype
-    if chain_act_b is None or jump_act_b is None:
-        act_pad = _pad1(active.to(torch.bool), False)
-        chain_act_b = act_pad[cplan.chain_elem]
-        jump_act_b = act_pad[cplan.jump_elem]
-    m_c = (chain_act_b & fast.chain_tree).to(dtype)
+def chain_diag(cplan, m_c, m_j, free_chain, reg: float):
+    """(9, N) component planes of the per-position 3x3 diagonal block in
+    CHAIN order: the chain slots' stiffness at both ends plus one jump
+    scatter, each element through its mask (``m_c`` (N,), ``m_j`` (Jp,) in
+    the plan's dtype); reg on a free row's diagonal, identity on a pinned
+    row. On the CPU the jump terms add in the order of the per-node jump
+    CSR, as K5's and K6's set-up add them (``chain_op::diag_block``)."""
     nc = cplan.chain_n
     kd_c = (cplan.chain_kax - cplan.chain_kbd) * m_c
     kb_c = cplan.chain_kbd * m_c
-    m_j = (jump_act_b & fast.jump_tree).to(dtype)
     njp = cplan.jump_n
     kd_j = (cplan.jump_kax - cplan.jump_kbd) * m_j
     kb_j = cplan.jump_kbd * m_j
@@ -317,7 +312,7 @@ def chain_tree_diag(plan: TreePlan, fast: FastFactorData, cplan,
             k3j = njp[i] * njp[j] * kd_j
             kj.append(k3j + kb_j if i == j else k3j)
     kj = torch.stack(kj)                                    # (9, Jp)
-    jidx = torch.cat([fast.ja, fast.jb])
+    jidx = torch.cat([cplan.ja, cplan.jb])
     jump = kj.new_zeros((9, n_chain + 1))                   # col N: padding
     jump.index_add_(1, jidx, torch.cat([kj, kj], dim=1))
     zero1 = kj.new_zeros((1,))
@@ -336,6 +331,22 @@ def chain_tree_diag(plan: TreePlan, fast: FastFactorData, cplan,
                 p = torch.where(free_chain, p, 0.0)
             planes.append(p)
     return torch.stack(planes)
+
+
+def chain_tree_diag(plan: TreePlan, fast: FastFactorData, cplan,
+                    active, free_chain, reg: float, chain_act_b=None,
+                    jump_act_b=None):
+    """(9, N) component planes of the tree-PC diagonal in CHAIN order:
+    ``chain_diag`` through the forest's elements. Pinned rows are
+    identity."""
+    dtype = plan.k3.dtype
+    if chain_act_b is None or jump_act_b is None:
+        act_pad = _pad1(active.to(torch.bool), False)
+        chain_act_b = act_pad[cplan.chain_elem]
+        jump_act_b = act_pad[cplan.jump_elem]
+    return chain_diag(cplan, (chain_act_b & fast.chain_tree).to(dtype),
+                      (jump_act_b & fast.jump_tree).to(dtype), free_chain,
+                      reg)
 
 
 def _dense_tail_factor(plan: TreePlan, D_tail, dacc_tail, ke, fill_B):

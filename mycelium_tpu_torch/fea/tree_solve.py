@@ -12,12 +12,15 @@ preconditioner, PCG and the permutation back all run inside the one launch;
 on a CPU model the launch runs the plain version. B4's semantics: every
 level on PCR, no dense tail, no coarse stage (the configuration's
 ``tree_coarse_weight`` is not read), stop on r·r <= rtol²·|free·b|², no
-atol, no stall exit, no restarts.
+atol, no restarts; and the stall exit of the reference's ``pcg``, which
+runs the solves above B4's memory gate that K6 takes here: ``converged``
+is pcg's verdict (on the tolerance, or on a plateau within STALL_ACCEPT
+times it).
 """
 
 from __future__ import annotations
 
-from ..kernels.tree_cg import tree_cg_setup_plain
+from ..kernels.tree_cg import stall_converged, tree_cg_setup_plain
 from .solve import SolveResult, free_mask
 
 
@@ -50,6 +53,6 @@ def tree_cg_solve(model, active, dy_top: float, dy_bot: float, x0, cfg,
     x, stats = model.tree_launch.solve(
         active, free_mask(model, anchored), dy_top, dy_bot, x0, cfg.rtol,
         cfg.reg, preconditioner_reg(model, cfg), cfg.max_iter)
-    iters, rnorm, tol = stats.tolist()
+    iters, rnorm, tol, since = stats.tolist()
     return SolveResult(x=x, iters=int(iters), resnorm=rnorm,
-                       converged=rnorm <= tol)
+                       converged=stall_converged(rnorm, tol, int(since)))

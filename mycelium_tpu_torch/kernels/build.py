@@ -69,19 +69,21 @@ _SIGNATURES = {
     # ov_start, ov_count, d2, tt, id, H, cap, g, n_slots, stream
     "anast_scan_f32": [_P] * 13 + [_I64, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, _P],
-    # uk, x0, freem, cact, jact, cn, ckax, ckbd, jn, jkax, jkbd, ja, jb, jp,
-    # jptr, jent, c9, ainv, x, stats, work, part, n, nbc, width, use_ramp,
-    # rtol, reg, max_iter, grid_blocks, stream
-    "chain_cg_f32": [_P] * 13 + [_I64] + [_P] * 8 + [_I64] * 3 + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-        ctypes.c_int, _P],
-    "chain_cg_grid_blocks": [ctypes.POINTER(ctypes.c_int)],
+    # ptrs, n_ptrs, ints, n_ints (the enums Ptr and Int of chain_cg.cu),
+    # active, anchored, x0, x, stats, dy_top, dy_bot, rtol, reg, max_iter,
+    # setup_only, stream
+    "chain_cg_f32": [ctypes.POINTER(_P), ctypes.c_int,
+                     ctypes.POINTER(_I64), ctypes.c_int] + [_P] * 5
+    + [ctypes.c_float] * 4 + [ctypes.c_int, ctypes.c_int, _P],
+    # blocks per SM (out), SMs (out)
+    "chain_cg_grid_blocks": [ctypes.POINTER(ctypes.c_int),
+                             ctypes.POINTER(ctypes.c_int)],
     # ptrs, n_ptrs, ints, n_ints (the enums Ptr and Int of tree_cg.cu),
     # active, free, x0, x, stats, dy_top, dy_bot, rtol, reg, reg_pc,
-    # max_iter, stream
+    # stall_accept, max_iter, stream
     "tree_cg_f32": [ctypes.POINTER(_P), ctypes.c_int,
                     ctypes.POINTER(_I64), ctypes.c_int] + [_P] * 5
-    + [ctypes.c_float] * 5 + [ctypes.c_int, _P],
+    + [ctypes.c_float] * 6 + [ctypes.c_int, _P],
     # ptrs, n_ptrs, ints, n_ints, active, free, x0, dy_top, dy_bot, reg_pc,
     # stream
     "tree_cg_setup_f32": [ctypes.POINTER(_P), ctypes.c_int,

@@ -41,6 +41,26 @@ __device__ __forceinline__ double block_sum(double v, double* sh) {
   return sh[WARPS];
 }
 
+// the block's totals of K values at once, each in the order of block_sum
+// (so each equals block_sum of it), returned to every thread in v; sh
+// holds K·(WARPS + 1) doubles of shared memory. One pass of barriers for
+// all K.
+template <int K>
+__device__ __forceinline__ void block_sums(double v[K], double* sh) {
+  for (int k = 0; k < K; ++k) v[k] = warp_sum0(v[k]);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0)
+    for (int k = 0; k < K; ++k) sh[k * WARPS + (threadIdx.x >> 5)] = v[k];
+  __syncthreads();
+  if (threadIdx.x < K) {
+    double s = 0.0;
+    for (int i = 0; i < WARPS; ++i) s += sh[threadIdx.x * WARPS + i];
+    sh[K * WARPS + threadIdx.x] = s;
+  }
+  __syncthreads();
+  for (int k = 0; k < K; ++k) v[k] = sh[K * WARPS + k];
+}
+
 __device__ __forceinline__ void put_partial(double v, double* slots,
                                             double* sh) {
   double s = block_sum(v, sh);

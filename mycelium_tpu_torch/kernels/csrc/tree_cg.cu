@@ -4,8 +4,13 @@
 // (B4): the solve's set-up, every level's PCR factorization with the
 // attachment and fill Schur corrections, B1's operator, the forest
 // preconditioner's forward and backward sweeps, and CG with the stop on
-// r·r <= rtol²·|free·b|²; no atol, no stall exit, no restarts, no dense
-// tail, no coarse stage. It does not copy B4's layout: no (NB, 128) planes,
+// r·r <= rtol²·|free·b|²; no atol, no restarts, no dense tail, no coarse
+// stage. B4 has no stall exit; K6 has the one of the reference's pcg
+// (mycelium_tpu/fea/solve.py:254-300), which runs the solves above B4's
+// memory gate that K6 takes: the loop also ends once |r| has not improved
+// by 0.1% on its best for stall_window iterations, or for near_window
+// iterations while |r| <= stall_accept·tol (float32 throughout, as pcg).
+// It does not copy B4's layout: no (NB, 128) planes,
 // no rolls, no level masks over all slots and no one-hot matrix products.
 // Vectors are the port's (3, N) chain-ordered component planes (slot s of
 // the forest IS chain position s), B4's one-hot gathers and scatters are
@@ -109,7 +114,7 @@ enum Ptr {
 };
 enum Int {
   I_N, I_JP, I_E, I_S, I_P, I_L, I_SMAX_GLOBAL, I_COEF, I_GRID, I_SMEM,
-  N_INTS
+  I_STALL_WINDOW, I_NEAR_WINDOW, N_INTS
 };
 
 struct TreeArgs {
@@ -119,9 +124,10 @@ struct TreeArgs {
   const unsigned char* freen;    // (N) by node
   const float* x0n;              // (N, 3) by node
   float* xn;                     // (N, 3) by node: the result
-  float* stats;                  // [iterations, |r|, tol, barriers]
-  float dy_top, dy_bot, reg_pc, rtol;
-  int max_iter;
+  float* stats;                  // [iterations, |r|, tol, iterations
+                                 //  without improvement, barriers]
+  float dy_top, dy_bot, reg_pc, rtol, stall_accept;
+  int max_iter, stall_window, near_window;
   // the set-up's static tables
   const int* perm;               // (N) position -> node
   const int* chain_elem;         // (N) element of chain slot p, E for none
@@ -205,29 +211,25 @@ __device__ __forceinline__ Level level_of(const TreeArgs& a, int li) {
 // the per-solve set-up
 // ---------------------------------------------------------------------------
 
-// (kax - kbd)·m·n n^T + kbd·m·I of a chain slot or jump row, the association
-// of chain_tree_diag
-__device__ __forceinline__ void edge_k3(float4 nk, float kbd, float m,
-                                        float k[9]) {
-  const float nn[3] = {nk.x, nk.y, nk.z};
-  const float kd = (nk.w - kbd) * m;
-  const float kb = kbd * m;
-  for (int i = 0; i < 3; ++i)
-    for (int j = 0; j < 3; ++j) {
-      const float v = nn[i] * nn[j] * kd;
-      k[3 * i + j] = (i == j) ? v + kb : v;
-    }
-}
-
 __device__ __forceinline__ bool elem_active(const TreeArgs& a, int e) {
   return e >= 0 && e < a.E && a.active[e] != 0;
 }
 
-__device__ __forceinline__ void chain_slot_k3(const TreeArgs& a, int q,
-                                              float k[9]) {
-  const bool m = elem_active(a, a.chain_elem[q]) && a.chain_tree[q] != 0;
-  edge_k3(a.t.cpack[q], a.t.ckbd[q], m ? 1.0f : 0.0f, k);
-}
+// the masks of the forest diagonal: an active element of the forest
+struct ForestChain {
+  const TreeArgs& a;
+  __device__ __forceinline__ float operator()(int q) const {
+    return elem_active(a, a.chain_elem[q]) && a.chain_tree[q] != 0 ? 1.0f
+                                                                  : 0.0f;
+  }
+};
+struct ForestJump {
+  const TreeArgs& a;
+  __device__ __forceinline__ float operator()(int j) const {
+    return elem_active(a, a.jump_elem[j]) && a.jump_tree[j] != 0 ? 1.0f
+                                                                : 0.0f;
+  }
+};
 
 // One thread a position, jump, slot and attachment entry; reads only the
 // solve's inputs and the static tables, so it needs no barrier inside.
@@ -256,33 +258,10 @@ __device__ void setup_phase(const TreeArgs& a, long long tid, long long nthr) {
     const bool fr = a.freen[a.perm[q]] != 0;
     const bool fprev = q > 0 && a.freen[a.perm[q - 1]] != 0;
     // the forest diagonal: both chain ends, then the jumps in CSR order
-    float kc[9], km[9];
-    float acc[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    chain_slot_k3(a, q, kc);
-    if (q > 0) {
-      chain_slot_k3(a, q - 1, km);
-    } else {
-      for (int c = 0; c < 9; ++c) km[c] = 0.0f;
-    }
-    for (int e = a.t.jptr[q]; e < a.t.jptr[q + 1]; ++e) {
-      const int j = a.t.jent[e] >> 1;
-      const bool m = elem_active(a, a.jump_elem[j]) && a.jump_tree[j] != 0;
-      float kj[9];
-      edge_k3(a.t.jpack[j], a.t.jkbd[j], m ? 1.0f : 0.0f, kj);
-      for (int c = 0; c < 9; ++c) acc[c] = acc[c] + kj[c];
-    }
-    for (int i = 0; i < 3; ++i)
-      for (int j = 0; j < 3; ++j) {
-        const int c = 3 * i + j;
-        float pv = kc[c] + km[c];
-        pv = pv + acc[c];
-        if (i == j) {
-          pv = fr ? pv + a.reg_pc : 1.0f;
-        } else {
-          pv = fr ? pv : 0.0f;
-        }
-        a.d9[c * S + s] = pv;
-      }
+    float d[9];
+    chain_op::diag_block(a.t, q, fr, a.reg_pc, ForestChain{a}, ForestJump{a},
+                         d);
+    for (int c = 0; c < 9; ++c) a.d9[c * S + s] = d[c];
     // the left-edge coupling: -k3 where the edge is active and both ends
     // are free
     const float m = (elem_active(a, a.left_elem[s]) && fr && fprev)
@@ -729,10 +708,15 @@ __global__ void __launch_bounds__(THREADS) tree_cg_kernel(TreeArgs a) {
   precondition(true, false, 0.0f);
 
   const float tol2 = a.rtol * a.rtol * grid_total(part_bb, sh);
+  const float tol = sqrtf(tol2);
   float rr = grid_total(part_rr, sh);
   float rz = grid_total(part_rz, sh);
-  int k = 0;
+  float rnorm = sqrtf(rr), best = rnorm;
+  int k = 0, since = 0;
   while (k < a.max_iter && rr > tol2) {
+    // the stall exit: every block holds the same rr, so all leave together
+    const bool near = rnorm <= a.stall_accept * tol;
+    if (since >= (near ? a.near_window : a.stall_window)) break;
     double spap = 0.0;
     for (long long q0 = (long long)blockIdx.x * THREADS; q0 < n;
          q0 += (long long)G * THREADS) {
@@ -765,6 +749,9 @@ __global__ void __launch_bounds__(THREADS) tree_cg_kernel(TreeArgs a) {
       a.p[e] = a.z[e] + beta * a.p[e];
     rz = rz_new;
     ++k;
+    rnorm = sqrtf(rr);
+    since = rnorm < best * 0.999f ? 0 : since + 1;
+    best = fminf(best, rnorm);
     barrier();
   }
 
@@ -775,9 +762,10 @@ __global__ void __launch_bounds__(THREADS) tree_cg_kernel(TreeArgs a) {
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     a.stats[0] = (float)k;
-    a.stats[1] = sqrtf(rr);
-    a.stats[2] = sqrtf(tol2);
-    a.stats[3] = (float)barriers;
+    a.stats[1] = rnorm;
+    a.stats[2] = tol;
+    a.stats[3] = (float)since;
+    a.stats[4] = (float)barriers;
   }
 }
 
@@ -885,6 +873,8 @@ bool fill_args(const void* const* ptrs, int n_ptrs, const long long* ints,
   a.jp = (int)jp;
   a.E = (int)ints[I_E];
   a.L = (int)ints[I_L];
+  a.stall_window = (int)ints[I_STALL_WINDOW];
+  a.near_window = (int)ints[I_NEAR_WINDOW];
   return true;
 }
 
@@ -917,14 +907,16 @@ extern "C" int tree_cg_grid_blocks(int smem, int* per_sm, int* sms) {
 // static tables, the work buffer in the layout of fill_args and 4·grid
 // doubles of partial sums); the rest is the solve's own: the active mask
 // by element (bytes), the free mask by node (bytes), the start vector and
-// the result (N, 3) by node, stats (4 floats), the grips' displacements,
-// the tolerance, the operator's and the preconditioner's regularisation.
+// the result (N, 3) by node, stats (5 floats), the grips' displacements,
+// the tolerance, the operator's and the preconditioner's regularisation,
+// the stall exit's acceptance factor.
 extern "C" int tree_cg_f32(const void* const* ptrs, int n_ptrs,
                            const long long* ints, int n_ints,
                            const void* active, const void* freen,
                            const float* x0, float* x, float* stats,
                            float dy_top, float dy_bot, float rtol, float reg,
-                           float reg_pc, int max_iter, cudaStream_t stream) {
+                           float reg_pc, float stall_accept, int max_iter,
+                           cudaStream_t stream) {
   TreeArgs a;
   if (!fill_args(ptrs, n_ptrs, ints, n_ints, a))
     return (int)cudaErrorInvalidValue;
@@ -938,6 +930,7 @@ extern "C" int tree_cg_f32(const void* const* ptrs, int n_ptrs,
   a.rtol = rtol;
   a.t.reg = reg;
   a.reg_pc = reg_pc;
+  a.stall_accept = stall_accept;
   a.max_iter = max_iter;
   void* args[] = {&a};
   cudaError_t e = allow_smem(ints[I_SMEM]);
@@ -968,6 +961,7 @@ extern "C" int tree_cg_setup_f32(const void* const* ptrs, int n_ptrs,
   a.dy_bot = dy_bot;
   a.rtol = 0.0f;
   a.reg_pc = reg_pc;
+  a.stall_accept = 0.0f;
   a.max_iter = 0;
   const unsigned blocks = (unsigned)((a.n + THREADS - 1) / THREADS);
   tree_cg_setup_kernel<<<blocks, THREADS, 0, stream>>>(a);

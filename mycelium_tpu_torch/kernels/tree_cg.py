@@ -24,8 +24,13 @@ diagonal, ``bel`` (9, S) the left-edge element couplings and ``katt``
 The solve is B4's: every level factored by PCR (no dense tail, no coarse
 stage), b = pin·uk − free·(K uk), x = free·x0 + pin·uk, PCG on the BC'd
 operator with the forest solve on the slots and the identity after them,
-stop when k ≥ max_iter or r·r ≤ rtol²·|free·b|²; no atol, no stall exit, no
-restarts. Returns x and stats (3,) = [iterations, |r|, tol].
+stop when k ≥ max_iter or r·r ≤ rtol²·|free·b|²; no atol, no restarts. B4
+has no stall exit; K6 has the reference pcg's (``fea/solve.py::pcg``, whose
+solves above B4's memory gate K6 takes): it also stops once |r| has not
+improved by 0.1% on its best for STALL_WINDOW iterations, or for
+NEAR_WINDOW iterations while |r| ≤ STALL_ACCEPT·tol. Returns x and stats
+(4,) = [iterations, |r|, tol, iterations without improvement], from which
+``stall_converged`` reads pcg's verdict.
 """
 
 from __future__ import annotations
@@ -42,6 +47,11 @@ from .chain_matvec import chain_matvec_plain
 CHUNK = build.TREE_CG_CHUNK
 WINDOW = build.TREE_CG_WINDOW
 THREADS = 256                      # grid_reduce.cuh::THREADS
+# the stall exit of the reference's pcg (mycelium_tpu/fea/solve.py:202-203,
+# 254): its defaults, the only values its callers pass
+STALL_WINDOW = 256
+NEAR_WINDOW = max(STALL_WINDOW // 8, 8)
+STALL_ACCEPT = 10.0
 # the smallest cooperative grid, as a share of the card's SMs: see
 # grid_rule
 MIN_GRID_SHARE = 4
@@ -107,13 +117,21 @@ def barrier_count(tables, iters: int) -> int:
     return 1 + factor + apply_ + iters * per_iter
 
 
+def stall_converged(rnorm: float, tol: float, since: int) -> bool:
+    """pcg's verdict on a solve that ended with |r| = ``rnorm`` after
+    ``since`` iterations without improvement: on its tolerance, or on a
+    plateau within STALL_ACCEPT·tol."""
+    return rnorm <= tol or (since >= NEAR_WINDOW
+                            and rnorm <= STALL_ACCEPT * tol)
+
+
 def tree_cg_plain(cplan, tplan, tables, uk, x0, freem, cact, jact, d9, bel,
                   katt, rtol: float, reg: float, max_iter: int):
     """The plain PyTorch version, any device and dtype: the port's level
     factorization and forest apply (``fea/tree_factor.py``) with every
-    level on PCR, K1's plain operator, and CG with float64 dots. It reads
-    r·r on the host once per iteration for its stop test. ``tables`` is
-    not read."""
+    level on PCR, K1's plain operator, and CG with float64 dots and the
+    stall exit in the kernel's float32 arithmetic. It reads r·r on the
+    host once per iteration for its stop tests. ``tables`` is not read."""
     from ..fea.tree_factor import (TreeFactor, tree_apply_chain_planes,
                                    tree_factor_levels)
     dtype = uk.dtype
@@ -147,8 +165,14 @@ def tree_cg_plain(cplan, tplan, tables, uk, x0, freem, cact, jact, d9, bel,
     p = z
     rz = dot(r, z)
     rr = dot(r, r)
-    k = 0
+    tol = tol2.sqrt()
+    rnorm = rr.sqrt()
+    best = rnorm
+    k = since = 0
     while k < max_iter and bool(rr > tol2):
+        near = bool(rnorm <= STALL_ACCEPT * tol)
+        if since >= (NEAR_WINDOW if near else STALL_WINDOW):
+            break
         ap = matvec(p)
         pap = dot(p, ap)
         alpha = torch.where(pap > 0, rz / torch.where(pap > 0, pap, 1.0),
@@ -163,8 +187,11 @@ def tree_cg_plain(cplan, tplan, tables, uk, x0, freem, cact, jact, d9, bel,
         rz = rz_new
         rr = dot(r, r)
         k += 1
-    stats = torch.stack([rr.new_tensor(float(k)), rr.sqrt(), tol2.sqrt()])
-    return x, stats
+        rnorm = rr.sqrt()
+        since = 0 if bool(rnorm < best * 0.999) else since + 1
+        best = torch.minimum(best, rnorm)
+    return x, torch.stack([rr.new_tensor(float(k)), rnorm, tol,
+                           rr.new_tensor(float(since))])
 
 
 def tree_cg_setup_plain(cplan, tplan, fast, conn, top_nodes, bot_nodes,
@@ -226,7 +253,7 @@ def grid_rule(n: int, per_sm: int, sms: int) -> int:
 
 class TreeCgLaunch:
     """K6 bound to one model: built once (``fea/model.py::
-    with_tree_kernel``), it validates the model's static tensors, keeps
+    with_kernels``), it validates the model's static tensors, keeps
     their pointers in one prebuilt argument array and owns the scratch
     (sized once by ``work_floats``), the per-block partial sums, two result
     buffers and two stats buffers. ``solve`` passes only what changes.
@@ -351,13 +378,15 @@ class TreeCgLaunch:
                                 device=dev)
         self._x = [torch.empty((self.n, 3), dtype=f32, device=dev)
                    for _ in range(2)]
-        self._stats = [torch.empty(4, dtype=f32, device=dev)
+        # [iterations, |r|, tol, iterations without improvement, barriers]
+        self._stats = [torch.empty(5, dtype=f32, device=dev)
                        for _ in range(2)]
         ptrs = [t.data_ptr() for _, t, _, _ in named] + [
             self.work.data_ptr(), self.part.data_ptr()]
         # the order of the enum Int in csrc/tree_cg.cu
         ints = [self.n, self.jp, self.n_elems, self.S, self.P, self.L,
-                tk.smax_global, tk.coef_floats, self.grid, self.smem]
+                tk.smax_global, tk.coef_floats, self.grid, self.smem,
+                STALL_WINDOW, NEAR_WINDOW]
         self._ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
         self._ints = (ctypes.c_longlong * len(ints))(*ints)
         self._n_ptrs, self._n_ints = len(ptrs), len(ints)
@@ -376,10 +405,11 @@ class TreeCgLaunch:
 
     def solve(self, active, free, dy_top: float, dy_bot: float, x0,
               rtol: float, reg: float, reg_pc: float, max_iter: int):
-        """One solve: x (N, 3) in node order and stats (3,). ``active``
-        (E,) bool, ``free`` (N,) bool and ``x0`` (N, 3) are in the model's
-        own order. One cooperative launch for a CUDA model (float32 only,
-        raises otherwise), the plain version for a CPU model."""
+        """One solve: x (N, 3) in node order and stats (4,)
+        (``tree_cg_plain``). ``active`` (E,) bool, ``free`` (N,) bool
+        and ``x0`` (N, 3) are in the model's own order. One cooperative
+        launch for a CUDA model (float32 only, raises otherwise), the plain
+        version for a CPU model."""
         if not self.cuda:
             return self.plain(active, free, dy_top, dy_bot, x0, rtol, reg,
                               reg_pc, max_iter)
@@ -392,15 +422,15 @@ class TreeCgLaunch:
             self._ptrs, self._n_ptrs, self._ints, self._n_ints,
             active.data_ptr(), free.data_ptr(), x0.data_ptr(), x.data_ptr(),
             stats.data_ptr(), dy_top, dy_bot, rtol, reg, reg_pc,
-            int(max_iter), build.raw_stream(self._index))
+            STALL_ACCEPT, int(max_iter), build.raw_stream(self._index))
         if rc != 0:
             build.check(rc, "tree_cg_f32")
         build.count_launch("tree_cg")
-        return x, stats[:3]
+        return x, stats[:4]
 
     def last_barriers(self) -> int:
         """Grid-wide barriers the last launch crossed (a host read)."""
-        return int(self._stats[self._turn][3])
+        return int(self._stats[self._turn][4])
 
     def setup(self, active, free, dy_top: float, dy_bot: float, x0,
               reg_pc: float) -> dict:

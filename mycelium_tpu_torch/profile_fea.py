@@ -7,8 +7,10 @@ For each synthetic mesh (``meshes.synthetic_mesh``, the configuration of
 ``hybrid_fea_config``, coarse weight 0) it solves the full-displacement
 system cold through the whole-solve tree kernel (K6, ``model.tree_kernel``
 forced on: one ``&`` for the free mask, the launch bound to the model, one
-read of its stats) and through the hybrid (K1-K3 and a CG loop on the host,
-forced off), and per route reports:
+read of its stats), through the hybrid (K1-K3 and a CG loop on the host,
+forced off) and, with cg + coarse (rtol 1e-5, max_iter 3000, the sweep's
+K5 leg), through the whole-solve coarse kernel (K5), and per route
+reports:
 
 1. wall milliseconds a solve, the card synchronised at the end (median of
    ``--reps``), the iterations and |r|;
@@ -16,16 +18,29 @@ forced off), and per route reports:
    (``torch.cuda.set_sync_debug_mode``), by source line;
 3. from a ``torch.profiler`` trace of ``--reps`` solves (after one profiled
    warm-up solve): device operations and device-busy milliseconds a solve,
-   the busy share of pass 1's wall time, and the largest kernels;
+   the busy share of pass 1's wall time, and the largest kernels; on the
+   K5 route also the kernel's device time with the iteration cap at 0, 1
+   and 10 and converged, and its slope an iteration;
 4. the 40-step ramp of the mesh on its own route (``run_ramp`` and
    ``run_ramp_async``), wall seconds, and what a ramp step spends beside
    its solve: ``post_solve`` (reactions, stress, fracture), the four
    record reads of ``run_ramp`` and one refresh of the grip reachability,
-   wall milliseconds each, synchronised (median of ``--reps``).
+   wall milliseconds each, synchronised (median of ``--reps``); with
+   ``--ramp-routes`` the same 40-step fracturing ramp (``run_ramp``) on K6
+   and on the forced hybrid: the steps each reached (or where it raised),
+   the iterations a step and the largest difference of their records.
 
 Every mesh's wall readings (1 and 4) are taken before any mesh's syncs and
 traces (2 and 3): a ``torch.profiler`` window slows every later launch of
 the process on the host.
+
+With ``--sweep TRIALS`` it runs only the solver sweep instead, on each
+mesh: ``run_solver_sweep`` in chip_smoke.py's configuration (3 ramp steps,
+rtol 1e-5, max_iter 3000, tree legs with coarse weight 0.25), TRIALS
+trials, and per combination the median ms over the loaded steps and the
+trials, the route and the iterations. It needs nothing of the package
+beyond ``run_solver_sweep``'s arguments, so the same file can time an
+older checkout of the package (run it from that checkout's root).
 
 Prints one JSON object, the card's name and power limit in it; with
 ``--out`` it also writes the Chrome traces there. Needs a CUDA card.
@@ -51,6 +66,11 @@ from .fea.model import tree_kernel_bytes
 from .fea.ramp import post_solve, refresh_anchored
 from .kernels import launch_counts, reset_launch_counts
 from .meshes import synthetic_mesh
+
+
+# the sweep's K5 leg (chip_smoke.py, scripts/bench_sweep_tpu.py)
+K5_RTOL = 1e-5
+K5_MAX_ITER = 3000
 
 
 def _sync():
@@ -127,7 +147,60 @@ def profile(solve, reps: int, wall_ms: float, trace_path):
                                           for k, v in top])
 
 
-def profile_mesh(n_nodes: int, reps: int, out_dir):
+def kernel_ms(solve, reps: int, name: str) -> float:
+    """Device milliseconds a solve of the kernels whose name holds
+    ``name``, from a ``torch.profiler`` trace of ``reps`` solves."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+    solve()
+    _sync()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            solve()
+        _sync()
+    return sum(e.device_time for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and name in e.name) / 1e3 / reps
+
+
+def ramp_routes(coords, conn, cfg, model) -> dict:
+    """The 40-step fracturing ramp on K6 and on the forced hybrid: steps
+    reached, iterations a step, wall seconds, and the largest difference
+    of the two routes' records (displacement as a share of its largest
+    entry, force, the active masks)."""
+    from .fea.ramp import SolveDivergedError
+    out, recs = {}, {}
+    for name, on in (("tree_cg", True), ("hybrid", False)):
+        m = dataclasses.replace(model, tree_kernel=on)
+        _sync()
+        t0 = time.perf_counter()
+        try:
+            r = run_ramp(coords, conn, cfg, model=m)
+        except SolveDivergedError as e:
+            out[name] = dict(raised=str(e))
+            continue
+        _sync()
+        recs[name] = r
+        out[name] = dict(steps=int(r.force_disp.shape[0]),
+                         iters=r.cg_iters.tolist(),
+                         fractured=int((~r.active_record[-1]).sum()),
+                         wall_s=time.perf_counter() - t0)
+    if len(recs) == 2:
+        a, b = recs["tree_cg"], recs["hybrid"]
+        n = min(a.force_disp.shape[0], b.force_disp.shape[0])
+        out["records"] = dict(
+            steps_compared=n,
+            disp_rel=float(np.abs(a.disp_record[:n] - b.disp_record[:n]).max()
+                           / max(np.abs(b.disp_record[:n]).max(), 1e-300)),
+            force_rel=float(np.abs(a.force_disp[:n, 1] - b.force_disp[:n, 1])
+                            .max() / max(np.abs(b.force_disp[:n, 1]).max(),
+                                         1e-300)),
+            active_differ=int((a.active_record[:n]
+                               != b.active_record[:n]).sum()))
+    return out
+
+
+def profile_mesh(n_nodes: int, reps: int, out_dir, with_ramps: bool = False):
     """A generator in two passes: first everything read on the host's clock
     (it yields None when that is done), then the syncs and the traces (it
     yields the mesh's results). ``main`` runs the first pass of every mesh
@@ -150,14 +223,21 @@ def profile_mesh(n_nodes: int, reps: int, out_dir):
                level_rounds=list(model.tree.meta.level_steps),
                kernel_bytes=tree_kernel_bytes(model),
                default_route=solve_route(model, cfg), routes={})
-    solves = {}
-    for name, on in (("tree_cg", True), ("hybrid", False)):
-        m = dataclasses.replace(model, tree_kernel=on)
+    k5_cfg = dataclasses.replace(cfg, precond="coarse", rtol=K5_RTOL,
+                                 max_iter=K5_MAX_ITER)
+    solves, cfgs = {}, {}
+    for name, m, c in (
+            ("tree_cg", dataclasses.replace(model, tree_kernel=True), cfg),
+            ("hybrid", dataclasses.replace(model, tree_kernel=False), cfg),
+            ("chain_cg", model, k5_cfg)):
+        if solve_route(m, c) != name:
+            raise AssertionError(f"{name}: the solve takes the route "
+                                 f"{solve_route(m, c)}")
 
-        def solve(m=m):
-            return solve_displacement(m, active, dy, -dy, x0, cfg, anchored)
+        def solve(m=m, c=c):
+            return solve_displacement(m, active, dy, -dy, x0, c, anchored)
 
-        solves[name] = solve
+        solves[name], cfgs[name] = solve, (m, c)
         solve()                                     # build, warm caches
         wall_ms, res = solve_ms(solve, reps)
         reset_launch_counts()
@@ -189,6 +269,8 @@ def profile_mesh(n_nodes: int, reps: int, out_dir):
         _sync()
         out[f"{name}_s"] = time.perf_counter() - t0
         out[f"{name}_steps"] = int(r.force_disp.shape[0])
+    if with_ramps:
+        out["ramp_routes"] = ramp_routes(coords, conn, ramp_cfg, model)
     yield None
     for name, solve in solves.items():
         n_syncs, sites = syncs_per_solve(solve, reps)
@@ -197,7 +279,44 @@ def profile_mesh(n_nodes: int, reps: int, out_dir):
         out["routes"][name].update(
             host_syncs_per_solve=n_syncs, syncs_by_line=sites,
             **profile(solve, reps, out["routes"][name]["solve_ms"], trace))
+    m, c = cfgs["chain_cg"]
+    caps = {}
+    for cap in (0, 1, 10, None):
+        cc = c if cap is None else dataclasses.replace(c, max_iter=cap)
+        caps["converged" if cap is None else str(cap)] = kernel_ms(
+            lambda: solve_displacement(m, active, dy, -dy, x0, cc, anchored),
+            reps, "chain_cg")
+    iters = out["routes"]["chain_cg"]["iters"]
+    out["routes"]["chain_cg"].update(
+        kernel_ms_by_cap=caps,
+        kernel_us_per_iteration=(caps["converged"] - caps["10"]) * 1e3
+        / max(iters - 10, 1))
     yield out
+
+
+def sweep_mesh(n_nodes: int, trials: int, device="cuda") -> dict:
+    """chip_smoke.py's sweep on ``synthetic_mesh(n_nodes)``: per
+    combination the median ms over the loaded steps and the trials, the
+    route, the iterations and the converged steps; the sweep's wall s."""
+    from .bench import run_solver_sweep
+    from .config import FeaConfig
+    coords, conn = synthetic_mesh(n_nodes)
+    cfg = FeaConfig(dtype="float32", rtol=K5_RTOL, max_iter=K5_MAX_ITER,
+                    operator="chain", precond="tree", tree_coarse_weight=0.25,
+                    tree_reg_rel=1e-7, n_steps=3)
+    t0 = time.perf_counter()
+    rows, meta = run_solver_sweep(coords, conn, cfg, trials=trials,
+                                  return_meta=True, device=device)
+    wall = time.perf_counter() - t0
+    combos = {}
+    for key, st in meta["combos"].items():
+        ms = [r[4] for r in rows if f"{r[1]}+{r[2]}" == key and r[0] > 0]
+        combos[key] = dict(median_ms=float(np.median(ms)),
+                           route=st.get("route"),
+                           median_iters=st["median_iters"],
+                           converged_steps=st["converged_steps"])
+    return dict(n_nodes=n_nodes, dof=3 * n_nodes, trials=trials,
+                wall_s=wall, combos=combos)
 
 
 def main(argv=None) -> int:
@@ -206,10 +325,19 @@ def main(argv=None) -> int:
                     default=[7375, 33000, 103000])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", default=None)
+    ap.add_argument("--ramp-routes", action="store_true",
+                    help="also ramp on K6 and on the hybrid and compare")
+    ap.add_argument("--sweep", type=int, default=0, metavar="TRIALS",
+                    help="run only the solver sweep, TRIALS trials a mesh")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_fea: needs a CUDA card")
-    runs = [profile_mesh(n, args.reps, args.out) for n in args.nodes]
+    if args.sweep:
+        print(json.dumps(dict(card=card_line(), sweeps=[
+            sweep_mesh(n, args.sweep) for n in args.nodes])))
+        return 0
+    runs = [profile_mesh(n, args.reps, args.out, args.ramp_routes)
+            for n in args.nodes]
     for run in runs:            # every wall reading before any trace
         next(run)
     print(json.dumps(dict(card=card_line(), reps=args.reps,

@@ -84,7 +84,7 @@ def test_consecutive_solves_equal_fresh_plain_solves(name):
                                                anch))
         assert x.shape == (m.n_nodes, 3) and x.dtype == torch.float32
         assert torch.equal(x, xp.T[m.chain.inv_perm])
-        assert stats.shape == (3,) and torch.equal(stats, sp)
+        assert stats.shape == (4,) and torch.equal(stats, sp)
         assert float(stats[1]) <= float(stats[2]) and int(stats[0]) >= 1
     assert got[0][0].data_ptr() != got[1][0].data_ptr()
     assert not torch.equal(got[0][0], got[1][0])

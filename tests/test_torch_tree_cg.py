@@ -110,7 +110,7 @@ def test_plain_matches_the_reference_tree_path_f64(name):
     x, stats = tree_cg_plain(*tree_cg_inputs(
         mt, torch.as_tensor(act), 0.01, -0.01, torch.as_tensor(x0), cfg,
         torch.as_tensor(anch)))
-    iters, rnorm, tol = stats.tolist()
+    iters, rnorm, tol, _ = stats.tolist()
     assert bool(rj.converged) and rnorm <= tol
     assert abs(int(iters) - int(rj.iters)) <= 1
     xj = np.asarray(rj.x)

@@ -188,6 +188,132 @@ def emulate_tree_setup(launch, active, free, dy_top, dy_bot, x0, reg_pc):
                 jact=jab.astype(dt), d9=d9, bel=bel, katt=katt)
 
 
+def emulate_chain_setup(launch, active, anchored, dy_top, dy_bot, x0, cfg):
+    """K5's set-up (csrc/chain_cg.cu: setup_phase, normalize_phase and the
+    Gauss-Jordan pivots) in numpy, from the tables the kernel is handed and
+    in its order of operations: float32 arithmetic one rounding an
+    operation, each coarse entry a float64 sum over the block's
+    contribution codes in list order, rounded once. Returns the dict
+    ``ChainCgLaunch.setup`` returns."""
+    from mycelium_tpu_torch.kernels.chain_cg import layout_of
+    f32, f64 = np.float32, np.float64
+    cp, k = launch.cplan, launch.cplan.k32
+    n, E = launch.n, launch.n_elems
+    nbc, width, nbas = layout_of(n, cfg)
+    plan = launch.plans.get(nbc, width, nbas)
+    active = np_of(active).astype(bool)
+    free = np_of(launch.free_nodes).astype(bool)
+    if anchored is not None:
+        free = free & np_of(anchored).astype(bool)
+    perm = np_of(k.perm)
+    cpack, ckbd = np_of(k.chain_pack), np_of(cp.chain_kbd)
+    jpack, jkbd = np_of(k.jump_pack), np_of(cp.jump_kbd)
+    ja, jb = np_of(k.ja), np_of(k.jb)
+    jptr, jent = np_of(k.jump_ptr), np_of(k.jump_ent)
+
+    def act(e):
+        return 0 <= e < E and active[e]
+
+    cact = np.array([act(e) for e in np_of(k.chain_elem)], f32)
+    jact = np.array([act(e) for e in np_of(k.jump_elem)], f32)
+    fr = free[perm]
+    freem = fr.astype(f32)
+    uy = (np_of(launch.top_nodes)[perm].astype(f32) * f32(dy_top)
+          + np_of(launch.bot_nodes)[perm].astype(f32) * f32(dy_bot))
+    uk = np.stack([np.zeros(n, f32), uy, np.zeros(n, f32)])
+    x = freem * np_of(x0).astype(f32)[perm].T + (f32(1) - freem) * uk
+
+    def edge_k3(nk, kbd, m):
+        kd, kb = (nk[3] - kbd) * m, kbd * m
+        return np.array([nk[i] * nk[j] * kd + (kb if i == j else f32(0))
+                         if i == j else nk[i] * nk[j] * kd
+                         for i in range(3) for j in range(3)], f32)
+
+    reg = f32(cfg.reg)
+    c9 = np.zeros((9, n), f32)
+    for q in range(n):
+        kc = edge_k3(cpack[q], ckbd[q], cact[q])
+        km = edge_k3(cpack[q - 1], ckbd[q - 1], cact[q - 1]) if q else \
+            np.zeros(9, f32)
+        acc = np.zeros(9, f32)
+        for e in range(jptr[q], jptr[q + 1]):
+            j = jent[e] >> 1
+            acc = acc + edge_k3(jpack[j], jkbd[j], jact[j])
+        d = (kc + km) + acc
+        d = np.where(np.arange(9) % 4 == 0, d + reg if fr[q] else f32(1),
+                     d if fr[q] else f32(0)).astype(f32)
+        scale = max(np.abs(d).max(), f32(1e-30))
+        b = d / scale
+        a00, a01, a02, a10, a11, a12, a20, a21, a22 = b
+        cof = np.array([a11 * a22 - a12 * a21, a02 * a21 - a01 * a22,
+                        a01 * a12 - a02 * a11, a12 * a20 - a10 * a22,
+                        a00 * a22 - a02 * a20, a02 * a10 - a00 * a12,
+                        a10 * a21 - a11 * a20, a01 * a20 - a00 * a21,
+                        a00 * a11 - a01 * a10], f32)
+        det = a00 * cof[0] + a01 * cof[3] + a02 * cof[6]
+        c9[:, q] = cof / (det * scale)
+
+    def ramp(q):
+        return (f32(q % width) - f32(0.5) * f32(width - 1)) / (
+            f32(0.5) * f32(width))
+
+    def w(q, f):
+        return 0.0 if not fr[q] else (f64(ramp(q)) if f else 1.0)
+
+    d = 3 * nbas
+    nc = plan.nc
+    codes = np_of(plan.blk_ent)
+    ptr = np_of(plan.blk_ptr)
+    a = np.zeros((nc, nc), f32)
+    for blk, (rc, cc) in enumerate(zip(np_of(plan.blk_row),
+                                       np_of(plan.blk_col))):
+        for inner in range(d * d):
+            fa, kc = divmod(inner // d, 3)
+            fb, kc2 = divmod(inner % d, 3)
+            acc = 0.0
+            for code in codes[ptr[blk]:ptr[blk + 1]]:
+                src, kind = code >> 4, code & 15
+                if kind == 8:
+                    pr = pc = src
+                    v = f64(reg) if kc == kc2 else 0.0
+                else:
+                    jump = kind >= 4
+                    ea, eb = (ja[src], jb[src]) if jump else (src, src + 1)
+                    nk, kbd = (jpack[src], jkbd[src]) if jump else \
+                        (cpack[src], ckbd[src])
+                    m = jact[src] if jump else cact[src]
+                    pr = eb if kind & 1 else ea
+                    pc = eb if kind & 2 else ea
+                    k3 = f64(nk[kc]) * f64(nk[kc2])
+                    k3 = k3 * (f64(nk[3]) - f64(kbd))
+                    if kc == kc2:
+                        k3 = k3 + f64(kbd)
+                    k3 = k3 * f64(m)
+                    v = k3 if (kind & 1) == ((kind >> 1) & 1) else -k3
+                    v = f64(v)
+                acc = acc + (w(pr, fa) * w(pc, fb)) * v
+            a[fa * 3 * nbc + kc * nbc + rc, fb * 3 * nbc + kc2 * nbc + cc] = \
+                f32(acc)
+    dg = np.diag(a)
+    sc = np.where(dg > 0, f32(1) / np.sqrt(np.maximum(dg, f32(1e-30))),
+                  f32(1)).astype(f32)
+    eye = np.eye(nc, dtype=bool)
+    an = (sc[:, None] * a) * sc[None, :]
+    an = an + np.where(eye, f32(1e-5), f32(0))
+    an = (an + np.where(eye & ~(dg > 0)[:, None], f32(1), f32(0))).astype(f32)
+    g = an
+    for kk in range(nc):
+        p = f32(1) / g[kk, kk]
+        rk = np.where(np.arange(nc) == kk, p, g[kk] * p).astype(f32)
+        f = g[:, kk].copy()
+        nxt = g - f[:, None] * rk[None, :]
+        nxt[:, kk] = -(f * p)
+        nxt[kk] = rk
+        g = nxt.astype(f32)
+    return dict(uk=uk, x=x, freem=freem, cact=cact, jact=jact, c9=c9, a=a,
+                s=sc, ainv=g)
+
+
 class JaxDraws:
     """A draw source (mycelium_tpu_torch/growth/draws.py) that replays the
     JAX package's key chain, so the port sees the reference's numbers:
