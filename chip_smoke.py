@@ -14,13 +14,24 @@ fails (non-zero exit) if any phase fails:
    K1, one PyTorch sparse product: the call time ``ms`` (one event interval
    over back-to-back calls: the larger of the device's time and the host's
    time to submit a call) and ``device_ms``, the kernels' own duration
-   from ``torch.profiler``; K1 through its bound operator;
+   from ``torch.profiler``; K1 through its bound operator, K2 through the
+   model's bound launch (``PcrFactorLaunch``: a level cut into
+   path-aligned windows is one launch) held to its plain version on the
+   CPU on copies of the same inputs (equal up to the sign of a zero), with
+   the unbound global-rounds form timed beside it;
 4. compare K5 with its plain version on the CPU on copies of the same
    inputs, on the 22,125-DOF mesh 5% fractured: the set-up bit for bit
    (masks, start vector, block-Jacobi inverse, coarse matrix and inverse),
    x after 1 and 10 iterations (const and linear basis) and converged; two
    launches equal; its barriers by the rule; time both, with the latency
    floor (iterations x three barriers x the barrier's cost at K5's grid);
+   Then fault P7's four sums (the chain diagonal's jump terms, the
+   coarse matrix on the cluster layout of K5's sweep configuration, the
+   hybrid's Schur corrections and forward right-hand sides), with every
+   PCR level's K2 outputs through the bound launch, on the same system:
+   twice on the card, bit-equal to each other and to the CPU; and the
+   fixed-order sum kernel against its plain version, timed on the coarse
+   blocks;
 5. compare K6 with its plain version on the 22,125-DOF mesh, intact and 5%
    fractured with the islands pinned (the set-up phase's outputs against
    the plain set-up; one preconditioner apply on a random vector, the load
@@ -28,9 +39,12 @@ fails (non-zero exit) if any phase fails:
    levels run on path-aligned windows and the barriers of a solve, time
    both, count the device operations and host syncs of one K6 solve (at
    most 12 and 1), and time a grid-wide barrier at 33 to 264 blocks;
-6. the same comparison at the shapes of the larger meshes the main paths
-   solve, 99k DOF (5 forest levels) and 309k DOF (6 levels), where fills
-   and attachments cross several levels; then K6 against the hybrid (K1-K3
+6. P7's check of phase 4 on the 309k-DOF system, whose hybrid factors 2
+   PCR levels (K2 on a level with Schur corrections and fill edges, held
+   to its plain version on the CPU); K6's comparison at the shapes of the
+   larger meshes the main paths solve, 99k DOF (5 forest levels) and
+   309k DOF (6 levels), where fills and attachments cross several
+   levels; then K6 against the hybrid (K1-K3
    and a CG loop on the host) in one call: cold solves at 22,125, 99k and
    309k DOF, the same preconditioner on both sides, iterations and the
    float64 residual beside each time; this (and ``profile_fea.py`` on
@@ -46,7 +60,8 @@ fails (non-zero exit) if any phase fails:
    model (records equal to ``run_ramp``'s), a cold solve at 309k DOF
    through K6 (the configuration's coarse weight 0.25 is not read there)
    and the same solve on the hybrid with that weight, as a model that
-   cannot run K6 takes it: K1-K3's launches are read here;
+   cannot run K6 takes it: K1-K3's launches are read here, K2's one a
+   PCR level a factorization;
 8. the sweep path, counts set to 0 before and read after: cg + coarse cold
    solves through K5 (median of 5 at 22,125 DOF with the float64 residual
    check, one at 309k DOF; in the traced tail, the device operations and
@@ -59,7 +74,8 @@ fails (non-zero exit) if any phase fails:
 9. the growth path, counts set to 0 before and read after: the xlarge
    preset (2^21 segment slots) for GROWTH_STEPS steps, K4 launched once
    per step;
-10. K4 against its plain version on the grown xlarge state: bit-equal;
+10. K4 against its plain version on the grown xlarge state and on the
+   tie-heavy state (``tests/torch_support.py::tie_state``): bit-equal;
 11. the demo preset grown twice with the same draws, through K4 and through
    the plain scan: equal states every 25 steps and at the end;
 12. the coupled pipeline at the medium preset with the fast solver preset,
@@ -78,7 +94,7 @@ none it exits non-zero and prints no result. No JAX is imported.
 
 Time: the whole run must end within 1200 s, the kernels' build included;
 phases 4 and 8 (K5 and the sweep) have a budget of 90 s of it. On an
-H100 the run took 95 to 109 s before K5's 309k comparison was added.
+H100 the run took 40 to 60 s in one call with its parent's.
 """
 
 from __future__ import annotations
@@ -119,6 +135,17 @@ F32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def shared_checks():
+    """``tests/torch_support.py``: the tie-heavy scan state and the
+    fixed-order sums, which this script and the tests hold to the same
+    checks."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_support
+    return torch_support
 
 
 def card_line() -> str:
@@ -166,16 +193,20 @@ def device_ms(fn, device, reps: int) -> float:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.name.startswith("ProfilerStep"))
-    if not total > 0:
-        raise AssertionError("the profiler saw no device time")
-    return total / 1e3 / reps
+    # a window now and then comes back empty (seen once in four runs on
+    # the card, on a K5 launch the window before had timed): trace again
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.name.startswith("ProfilerStep"))
+        if total > 0:
+            return total / 1e3 / reps
+        log("the profiler saw no device time in a window: tracing again")
+    raise AssertionError("the profiler saw no device time")
 
 
 # Work that traces the card, run at the end of the run. Found on the card:
@@ -396,21 +427,29 @@ def compare_kernels(model, coords, conn, cfg, device, rng, size: str) -> list:
     p0, p1 = meta.path_offsets[0], meta.path_offsets[1]
     fg = tree.first_gpos[p0:p1]
     lg = tree.last_gpos[p0:p1]
-    kf = pcr_factor(D, B, fg, lg, steps)
-    pf = pcr_factor_plain(D, B, fg, lg, steps)
-    # K2: the same float32 operations in the same order (no FMA
-    # contraction), but the adjugate inverses of reg-floored blocks of
-    # fractured fragments amplify any rounding difference by up to
-    # k_scale/reg_pc; 1e-4 of each output's largest entry bounds that
-    err2, rel2 = 0.0, 0.0
-    for name, a, b in zip(("alphas", "betas", "dinv", "corners"), kf, pf):
-        e, r = rel_err([a], [b])
-        log(f"K2 pcr_factor {size} {name}: S={S} steps={steps} "
-            f"max_abs_err={e:.3e} rel={r:.3e} (tol 1e-4)")
-        err2, rel2 = max(err2, e), max(rel2, r)
-    if not rel2 <= 1e-4:
-        raise AssertionError(f"K2 {size} disagrees: rel {rel2:.3e}")
-    ms2 = timed_ms(lambda: pcr_factor(D, B, fg, lg, steps), device, 20)
+    # K2 through the model's bound launch (the level cut into path-aligned
+    # windows, one launch) against its plain version on the CPU on copies
+    # of the same inputs: the same float32 operations in the same order
+    # (no FMA contraction), windows that need nothing outside them: 0,
+    # only the sign of a zero may differ (torch.equal)
+    launch = model.pcr_launch
+    if not launch.windowed[0]:
+        raise AssertionError(f"K2 {size}: level 0 is not windowed")
+    kf = [t.clone() for t in launch.factor(0, D, B)]
+    pf = launch.plain(0, D.cpu(), B.cpu())
+    err2 = max(float((a.cpu().double() - b.double()).abs().max())
+               for a, b in zip(kf, pf))
+    same2 = all(torch.equal(a.cpu(), b) for a, b in zip(kf, pf))
+    n_glob = sum(not w for w in launch.windowed)
+    log(f"K2 pcr_factor {size}: S={S} steps={steps}, "
+        f"{launch.windows[0][2]} windows; max_abs_err={err2:.3e} against "
+        f"the plain version on the CPU, equal: {same2}; PCR levels "
+        f"{len(launch.windowed)}, on global rounds {n_glob}")
+    if not same2:
+        raise AssertionError(f"K2 {size} disagrees with its plain version "
+                             f"on the CPU: {err2:.3e}")
+    ms2 = timed_ms(lambda: launch.factor(0, D, B), device, 50)
+    glob_ms = timed_ms(lambda: pcr_factor(D, B, fg, lg, steps), device, 20)
     pms2 = timed_ms(lambda: pcr_factor_plain(D, B, fg, lg, steps), device, 5)
     # per slot and round: an adjugate inverse (~41 ops), six 3x3 block
     # products (270), the block updates (36), and the six corner columns'
@@ -420,12 +459,17 @@ def compare_kernels(model, coords, conn, cfg, device, rng, size: str) -> list:
                      source="mycelium_tpu_torch/kernels/csrc/pcr.cu",
                      replaces="mycelium_tpu/fea/pallas_factor.py:102",
                      max_abs_err=err2, ms=ms2, plain_ms=pms2,
-                     bound_ms=b2[0], bound_by=b2[1], library_ms=None))
-    # its device time includes the wrapper's corner right-hand sides
+                     bound_ms=b2[0], bound_by=b2[1], library_ms=None,
+                     global_rounds_ms=glob_ms,
+                     global_levels=n_glob))
     defer_device_ms(f"K2 {size}", rows[-1],
-                    lambda: pcr_factor(D, B, fg, lg, steps), 20)
-    log(f"K2 time {size} call {ms2:.4f} ms (plain {pms2:.4f} ms, bound "
-        f"{b2[0]:.5f} ms by {b2[1]})")
+                    lambda: launch.factor(0, D, B), 50)
+    defer_device_ms(f"K2 {size}, unbound on global rounds", rows[-1],
+                    lambda: pcr_factor(D, B, fg, lg, steps), 20,
+                    "global_rounds_device_ms", "global_rounds_ms")
+    log(f"K2 time {size} call {ms2:.4f} ms (unbound, global rounds "
+        f"{glob_ms:.4f} ms; plain {pms2:.4f} ms, bound {b2[0]:.5f} ms by "
+        f"{b2[1]})")
 
     # K3: same order of operations as the plain version; only the window
     # edges differ, and they never reach a central slot: 1e-5 relative
@@ -652,11 +696,14 @@ def compare_anast(st, cfg, device) -> dict:
     import torch
     from mycelium_tpu_torch.growth import neighbors as nb
     from mycelium_tpu_torch.kernels import anast_scan, anast_scan_plain
+    support = shared_checks()
     g = nb.check_layout(cfg)
     grid, _ = nb.grid_insert_finalized(st.grid, st, cfg)
-    ov_slot, ov_start, ov_count, cell, _ = nb.tip_tables(st, cfg)
+    tb = nb.tip_tables(st, cfg)
+    ov_count, cell = tb.ov_count, tb.scan_cell
     args = (st.tip, cell, st.start, st.end, grid.ids, grid.geo, grid.count,
-            cfg.max_per_cell, ov_slot, ov_start, ov_count, g, st.capacity)
+            cfg.max_per_cell, tb.ov_slot, tb.ov_start, ov_count, g,
+            st.capacity, tb.tips)
     k = anast_scan(*args)
     p = anast_scan_plain(*args)
     sync(device)
@@ -674,6 +721,18 @@ def compare_anast(st, cfg, device) -> dict:
         f"(max |d2 diff| {err:.3e})")
     if not equal:
         raise AssertionError("K4 disagrees with its plain version")
+    # the tie-heavy state: duplicated segments, lattice points at bitwise
+    # equal distances from candidates in different cells, sources and ranks
+    tcfg, tst = support.tie_state(device)
+    targs = support.scan_args(tst, tcfg)
+    tie_equal = all(torch.equal(a, b) for a, b in
+                    zip(anast_scan(*targs), anast_scan_plain(*targs)))
+    log(f"K4 anast_scan on the tie-heavy state "
+        f"({int((targs[1] >= 0).sum())} tips): bit-equal to plain: "
+        f"{tie_equal}")
+    if not tie_equal:
+        raise AssertionError("K4 disagrees with its plain version on the "
+                             "tie-heavy state")
     ms = timed_ms(lambda: anast_scan(*args), device, 50)
     pms = timed_ms(lambda: anast_scan_plain(*args), device, 2)
     # the data the function needs: every hypha's cell, each tip's slot and
@@ -840,6 +899,96 @@ def k5_against_cpu(launch, cpu, args, cfg, tag: str) -> float:
                                  f"rel {rel:.3e}")
         err_max = max(err_max, err)
     return err_max
+
+
+def compare_fixed_order_sums(model, conn, cfg, device, rng, label: str,
+                             min_levels: int = 1):
+    """Fault P7: the sums whose terms collide on a target
+    (``tests/torch_support.py::fixed_order_sums``: the chain diagonal's
+    jump terms, the coarse matrix on the cluster layout of K5's
+    configuration ``cfg``, the hybrid's Schur corrections and forward
+    right-hand sides, and every PCR level's K2 outputs through the model's
+    bound launch) on ``model``'s system 5% fractured (islands pinned):
+    twice on the card, bit-equal to each other and to the CPU on copies of
+    the same inputs (K2 there its plain version). Returns the largest
+    |difference| from the CPU (0) and the inputs, for the timing."""
+    import torch
+    from mycelium_tpu_torch.devices import moved
+    from mycelium_tpu_torch.fea.coarse import cluster_layout, n_basis
+    from mycelium_tpu_torch.fea.ramp import anchored_mask_host
+    from mycelium_tpu_torch.fea.tree_solve import preconditioner_reg
+    sums = shared_checks().fixed_order_sums
+    active_np = rng.random(model.n_elems) > 0.05
+    grip = (model.top_nodes | model.bot_nodes).cpu().numpy()
+    anch = torch.as_tensor(anchored_mask_host(np.asarray(conn), active_np,
+                                              grip), device=device)
+    act = torch.as_tensor(active_np, device=device)
+    free = model.free_nodes & anch
+    _, _, nbc, width = cluster_layout(model.n_nodes, cfg)
+    plan = model.coarse_plans.get(nbc, width, n_basis(cfg))
+    rp = torch.as_tensor(rng.standard_normal((3, model.n_nodes)),
+                         dtype=model.dtype, device=device)
+    cpu = dataclasses.replace(moved(model, "cpu"), pcr_launch=None)
+    args = (act, free, plan, cfg.reg, preconditioner_reg(model, cfg), rp)
+    one = sums(model, *args)
+    two = sums(model, *args)
+    ref = sums(cpu, *moved(args, "cpu"))
+    sync(device)
+    bad = [n for n in ref if not (torch.equal(one[n], two[n])
+                                  and torch.equal(one[n].cpu(), ref[n]))]
+    err = max(float((one[n].cpu().double() - ref[n].double()).abs().max())
+              if ref[n].numel() else 0.0 for n in ref)
+    levels = sum(n.startswith("K2 level") for n in ref) // 4
+    log(f"P7 fixed-order sums, {label} 5% fractured: chain_diag, "
+        f"coarse_matrix, dacc, K2's outputs on {levels} PCR levels and racc "
+        f"over them and the tail; two runs and the CPU bit-equal: {not bad} "
+        f"(max |diff| from the CPU {err:.3e})")
+    if bad or levels < min_levels:
+        raise AssertionError(f"P7 {label}: not bit-equal twice and to the "
+                             f"CPU: {bad}; {levels} PCR levels")
+    return err, plan, act, free
+
+
+def time_ordered_sum(model, plan, act, free, cfg, device, rng,
+                     err: float) -> dict:
+    """The fixed-order sum kernel alone on the coarse matrix's sum (its
+    longest segments), against its plain version on the CPU, timed."""
+    import torch
+    from mycelium_tpu_torch.fea.coarse import coarse_matrix
+    from mycelium_tpu_torch.kernels.ordered_sum import (ordered_sum,
+                                                        ordered_sum_plain)
+    terms = torch.as_tensor(rng.standard_normal(
+        (int(plan.blk_ent.shape[0]), (3 * plan.nbas) ** 2)),
+        dtype=torch.float64, device=device).T
+    nblk = int(plan.blk_row.shape[0])
+    k = ordered_sum(terms, plan.blk_ptr, None, nblk)
+    p = ordered_sum_plain(terms.cpu(), plan.blk_ptr.cpu(), None, nblk)
+    if not torch.equal(k.cpu(), p):
+        raise AssertionError("ordered_sum disagrees with its plain version "
+                             "on the CPU")
+    ms = timed_ms(lambda: ordered_sum(terms, plan.blk_ptr, None, nblk),
+                  device, 50)
+    pms = timed_ms(lambda: ordered_sum_plain(terms, plan.blk_ptr, None,
+                                             nblk), device, 20)
+    lib = timed_ms(lambda: coarse_matrix(plan, model.chain, act,
+                                         free[model.chain.perm], cfg.reg,
+                                         model.dtype), device, 20)
+    # bytes: the terms and the pointers read once, the sums written; one
+    # float64 add a term
+    b = bound(nbytes(terms, plan.blk_ptr) + nblk * terms.shape[0] * 8,
+              terms.numel())
+    log(f"ordered_sum time (coarse blocks: {nblk} segments, "
+        f"{terms.shape[1]} terms, {terms.shape[0]} entries each) call "
+        f"{ms:.4f} ms (plain {pms:.4f} ms, the whole coarse_matrix "
+        f"{lib:.4f} ms, bound {b[0]:.5f} ms by {b[1]})")
+    row = dict(name="ordered_sum", route="cuda",
+               source="mycelium_tpu_torch/kernels/csrc/ordered_sum.cu",
+               replaces="mycelium_tpu/fea/tree_jax.py:698",
+               max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0],
+               bound_by=b[1], library_ms=None, coarse_matrix_ms=lib)
+    defer_device_ms("ordered_sum", row, lambda: ordered_sum(
+        terms, plan.blk_ptr, None, nblk), 50)
+    return row
 
 
 def compare_chain_cg(model, conn, cfg, device, rng, barrier_us) -> dict:
@@ -1445,7 +1594,11 @@ def coupled_pipeline(preset: str, device, fea_steps: int = 40) -> dict:
 def run(device, n_small: int = 7375, n_big: int = 103000,
         big_growth: str = "xlarge", growth_steps: int = GROWTH_STEPS,
         trajectory: str = "demo", coupled: str = "medium",
-        n_mid: int = 33000) -> dict:
+        n_mid: int = 33000, big_pcr_levels: int = 2) -> dict:
+    """Every phase; the defaults are the run on the card. A smaller run
+    (a rehearsal on the CPU) names the hybrid's PCR levels on its
+    ``n_big`` mesh in ``big_pcr_levels``: at 309k DOF there are 2, so
+    P7's check there holds K2 on a level with Schur corrections."""
     import torch
 
     from mycelium_tpu_torch.config import hybrid_fea_config
@@ -1476,6 +1629,12 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
                                  probe))
     log(f"K5 comparison phase {time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
+    err7, *inputs = compare_fixed_order_sums(model, conn, k5_config(),
+                                             device, rng, label)
+    rows.append(time_ordered_sum(model, *inputs, k5_config(), device, rng,
+                                 err7))
+    log(f"P7 fixed-order sums phase {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
     rows.append(compare_tree_cg(model, conn, cfg, device, rng, "22k", True))
     log(f"K6 comparison phase, 22k, {time.perf_counter() - t0:.2f} s")
 
@@ -1499,6 +1658,15 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     rows = rows309 + rows
     log(f"K1-K3 comparison at the 309k shapes {time.perf_counter() - t0:.2f} "
         "s")
+    # P7's sums at the FEA path's 309k shapes, where the hybrid factors 2
+    # PCR levels: K2 on a level with Schur corrections and fill edges
+    t0 = time.perf_counter()
+    row7 = next(r for r in rows if r["name"] == "ordered_sum")
+    row7["max_abs_err"] = max(row7["max_abs_err"], compare_fixed_order_sums(
+        model_b, conn_b, k5_config(grip_length=grip_b), device, rng, label_b,
+        big_pcr_levels)[0])
+    log(f"P7 fixed-order sums phase, {label_b}, "
+        f"{time.perf_counter() - t0:.2f} s")
 
     # K6 against its plain version on the deeper forests of the larger
     # meshes the main paths solve, then against the hybrid, in one call, at
@@ -1553,6 +1721,16 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     sync(device)
     fea_counts = launch_counts()
     log(f"kernel launches on the FEA path: {fea_counts}")
+    # K2: one launch a level per factorization of the hybrid's solves
+    k2 = model_b.pcr_launch
+    log(f"K2 on the FEA path: {fea_counts['pcr_factor']} launches, "
+        f"{fea_counts['pcr_factor'] / len(k2.windowed):.2f} factorizations "
+        f"of {len(k2.windowed)} PCR levels at {label_b} "
+        f"({sum(k2.windowed)} windowed)")
+    if device.type == "cuda" and (fea_counts["pcr_factor"] % len(k2.windowed)
+                                  or not all(k2.windowed)):
+        raise AssertionError("K2: not one launch a windowed level per "
+                             "factorization")
 
     # the sweep path
     t0 = time.perf_counter()
@@ -1580,9 +1758,10 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     log(f"kernel launches on the coupled pipeline: {pipe_counts}")
     # each kernel's launches are read on the path that is its own, and
     # every path must have launched what it is said to run
-    hyb = ("chain_matvec", "pcr_factor", "pcr_apply")
+    hyb = ("chain_matvec", "pcr_factor", "pcr_apply", "ordered_sum")
     own = {"chain_matvec": ("FEA", fea_counts),
            "pcr_factor": ("FEA", fea_counts),
+           "ordered_sum": ("FEA", fea_counts),
            "pcr_apply": ("FEA", fea_counts),
            "tree_cg": ("FEA", fea_counts),
            "chain_cg": ("sweep", sweep_counts),

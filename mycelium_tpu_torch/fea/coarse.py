@@ -35,6 +35,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..kernels.ordered_sum import ordered_sum
+
 BLOCK = 128                 # chain positions per cluster block
 REG32 = float(np.float32(1e-5))     # the reference's float32 shift
 
@@ -181,8 +183,8 @@ def coarse_matrix(plan: CoarsePlan, cplan, active, free_chain, reg: float,
     float64 sum, in the plan's order, of the exact float64 products
     w_row·w_col·k3 (w the basis weight at an end: 0 off the free mask, 1 or
     the in-cluster ramp), rounded to ``dtype`` once. ``active`` (E,) bool
-    by element, ``free_chain`` (N,) bool in chain order. On the CPU the
-    entries add one term after another (a sequential ``index_add_``)."""
+    by element, ``free_chain`` (N,) bool in chain order. The entries add
+    one term after another on every device (``kernels.ordered_sum``)."""
     f64 = torch.float64
     dev = cplan.perm.device
     n = cplan.perm.shape[0]
@@ -235,14 +237,9 @@ def coarse_matrix(plan: CoarsePlan, cplan, active, free_chain, reg: float,
             for fa in range(nbas):
                 for fb in range(nbas):
                     terms[:, 3 * fa + kc, 3 * fb + kc2] = (wr[fa] * wc[fb]) * v
-    counts = plan.blk_ptr[1:] - plan.blk_ptr[:-1]
-    blk = torch.repeat_interleave(torch.arange(counts.shape[0], device=dev),
-                                  counts.to(torch.int64))
-    target = (blk[:, None] * (d * d)
-              + torch.arange(d * d, device=dev)[None, :]).reshape(-1)
-    sums = torch.zeros(counts.shape[0] * d * d, dtype=f64, device=dev)
-    sums.index_add_(0, target, terms.reshape(-1))
-    sums = sums.reshape(-1, d, d)
+    nblk = plan.blk_row.shape[0]
+    sums = ordered_sum(terms.reshape(-1, d * d).T, plan.blk_ptr, None,
+                       nblk).T.reshape(nblk, d, d)
     nc = plan.nc
     fk = torch.arange(d, device=dev)
     base = (fk // 3) * (3 * nbc) + (fk % 3) * nbc

@@ -28,7 +28,7 @@ from .elements import ElementGeometry, element_forces, element_geometry_host
 from .tree import build_tree_schedule, element_k3
 from .tree_factor import (FastFactorData, TreeKernelTables, TreePlan,
                           build_fast_factor_data, build_tree_kernel_tables,
-                          build_tree_plan)
+                          build_tree_plan, pcr_factor_launch)
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -66,6 +66,10 @@ class FeaModel:
     # it allocates its scratch and buffers at the model's first cg + coarse
     # solve
     chain_launch: object | None = None
+    # K2 bound to the plan's PCR levels (kernels.PcrFactorLaunch): made with
+    # every model whose forest has levels, it allocates its buffers at the
+    # model's first factorization on the card (the hybrid route's)
+    pcr_launch: object | None = None
 
     @property
     def n_nodes(self) -> int:
@@ -191,9 +195,9 @@ def build_model(coords: np.ndarray, conn: np.ndarray, cfg,
 
 def with_kernels(model: FeaModel) -> FeaModel:
     """``model`` with its whole-solve kernels: its coarse plans, K5's
-    launch (bound at its first solve) and, where its forest has levels, the
-    tree kernel's index tables, whether it can run that kernel and, if it
-    can, the kernel's launch bound to it."""
+    launch (bound at its first solve) and, where its forest has levels, K2
+    bound to its levels, the tree kernel's index tables, whether it can run
+    that kernel and, if it can, the kernel's launch bound to it."""
     from ..kernels.chain_cg import ChainCgLaunch
     from ..kernels.tree_cg import TreeCgLaunch
     from .coarse import CoarsePlans
@@ -206,7 +210,8 @@ def with_kernels(model: FeaModel) -> FeaModel:
         launch = TreeCgLaunch(model.chain, model.tree, model.tree_fast,
                               tables, model.conn, model.top_nodes,
                               model.bot_nodes)
-        model = replace(model, tree_tables=tables, tree_launch=launch)
+        model = replace(model, tree_tables=tables, tree_launch=launch,
+                        pcr_launch=pcr_factor_launch(model.tree))
     fits = tree_kernel_fits(model)
     return replace(model, tree_kernel=fits,
                    tree_launch=launch if fits else None)

@@ -306,7 +306,8 @@ def compute_tree_factor(model, active, cfg, anchored=None, free_chain=None,
     factor = tree_factor_fast(model.tree, model.tree_fast, model.chain,
                               active, free, free_p, reg_pc, model.conn,
                               chain_act_b=chain_act_b,
-                              jump_act_b=jump_act_b)
+                              jump_act_b=jump_act_b,
+                              launch=model.pcr_launch)
     if cfg.tree_coarse_weight > 0.0:
         nb, kblk, _, _ = cluster_layout(model.n_nodes, cfg)
         factor = replace(factor, coarse_ainv=coarse_inverse(

@@ -17,14 +17,16 @@ dense junction-Schur inverse (``torch.linalg.inv``, as the reference).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
 import torch
 
 from ..kernels.build import TREE_CG_WINDOW
-from ..kernels.pcr import TRANSPOSE9, pcr_apply, pcr_factor
+from ..kernels.ordered_sum import ordered_sum
+from ..kernels.pcr import (PcrFactorLaunch, pcr_apply, pcr_factor,
+                           transpose9)
 from .tree import KIND_ELEM, KIND_FILL, KIND_NONE, TreeSchedule
 
 
@@ -76,6 +78,11 @@ class TreePlan:
     dense_eid: torch.Tensor      # (Ed,) tree elements inside the tail
     dense_i: torch.Tensor        # (Ed,) local tail rows
     dense_j: torch.Tensor        # (Ed,)
+    # the attachments by junction slot (``attachment_csr``): slot s's
+    # entries 2·path + side are att_ent[att_ptr[s]:att_ptr[s+1]], in the
+    # order (level, side, path) of a sequential index_add_ over the levels
+    att_ptr: Optional[torch.Tensor] = None   # (S+1,) int32
+    att_ent: Optional[torch.Tensor] = None   # (n_att,) int32
 
     @property
     def n_slots(self) -> int:
@@ -116,6 +123,31 @@ class FastFactorData:
     ja: torch.Tensor             # (Jp,) int64 (sentinel N)
     jb: torch.Tensor             # (Jp,)
     meta: FastMeta
+
+
+def attachment_csr(tgt: np.ndarray, path_offsets, S: int):
+    """The attachments by junction slot: ``tgt`` (P, 2) junction slots (S
+    for none). Returns host (ptr (S+1,), ent) int64, slot s's entries
+    2·path + side in the order (level, side, path) in which a sequential
+    ``index_add_`` over the levels, side 0 then side 1, adds them."""
+    tgt = np.asarray(tgt, np.int64).reshape(-1)
+    path_level = np.repeat(np.arange(len(path_offsets) - 1),
+                           np.diff(np.asarray(path_offsets, np.int64)))
+    ent = np.nonzero(tgt < S)[0]
+    key = np.lexsort((ent >> 1, ent & 1, path_level[ent >> 1], tgt[ent]))
+    ptr = np.zeros(S + 1, np.int64)
+    ptr[1:] = np.cumsum(np.bincount(tgt[ent], minlength=S))
+    return ptr, ent[key]
+
+
+def with_attachment_csr(plan: "TreePlan") -> "TreePlan":
+    """``plan`` with its attachment CSR, built on the host once."""
+    ptr, ent = attachment_csr(plan.att_tgt.cpu().numpy(),
+                              plan.meta.path_offsets, plan.n_slots)
+    dev = plan.att_tgt.device
+    return replace(plan, att_ptr=torch.as_tensor(ptr.astype(np.int32),
+                                                 device=dev),
+                   att_ent=torch.as_tensor(ent.astype(np.int32), device=dev))
 
 
 def build_tree_plan(schedule: TreeSchedule, k3: np.ndarray, dtype, device,
@@ -198,7 +230,7 @@ def build_tree_plan(schedule: TreeSchedule, k3: np.ndarray, dtype, device,
     k3_t = torch.as_tensor(k3_np, dtype=dtype, device=device)
     empty = torch.zeros((0,), dtype=torch.int64, device=device)
     if not schedule.levels:   # fully gripped: nothing to eliminate
-        return TreePlan(
+        return with_attachment_csr(TreePlan(
             meta=TreeMeta(level_offsets=(0,), path_offsets=(0,),
                           level_steps=(), k_scale=k_scale, n_pcr=0),
             tree_edge=tree_edge, k3=k3_t, slots=empty, left_elem=empty,
@@ -206,7 +238,7 @@ def build_tree_plan(schedule: TreeSchedule, k3: np.ndarray, dtype, device,
             last_gpos=empty, att_elem=idx([], (0, 2)),
             att_fill=idx([], (0, 2)), att_flip=flag([], (0, 2)),
             att_tgt=idx([], (0, 2)), has_fill=flag([]), dense_eid=empty,
-            dense_i=empty, dense_j=empty)
+            dense_i=empty, dense_j=empty))
 
     sizes = [lv_off[i + 1] - lv_off[i] for i in range(len(lv_off) - 1)]
     n_pcr = pcr_split(sizes, dense_tail)
@@ -219,7 +251,7 @@ def build_tree_plan(schedule: TreeSchedule, k3: np.ndarray, dtype, device,
     sa = node_to_slot[conn_np[te, 0]]
     sb = node_to_slot[conn_np[te, 1]]
     both = (sa >= t0) & (sb >= t0)
-    return TreePlan(
+    return with_attachment_csr(TreePlan(
         meta=TreeMeta(level_offsets=tuple(lv_off),
                       path_offsets=tuple(pa_off),
                       level_steps=tuple(steps), k_scale=k_scale,
@@ -230,7 +262,7 @@ def build_tree_plan(schedule: TreeSchedule, k3: np.ndarray, dtype, device,
         att_elem=idx(a_e), att_fill=idx(a_f), att_flip=flag(a_fl),
         att_tgt=idx(a_tg), has_fill=flag(hasf),
         dense_eid=idx([te[both]]), dense_i=idx([sa[both] - t0]),
-        dense_j=idx([sb[both] - t0]))
+        dense_j=idx([sb[both] - t0])))
 
 
 def build_fast_factor_data(schedule: TreeSchedule, k3: np.ndarray,
@@ -297,8 +329,10 @@ def chain_diag(cplan, m_c, m_j, free_chain, reg: float):
     CHAIN order: the chain slots' stiffness at both ends plus one jump
     scatter, each element through its mask (``m_c`` (N,), ``m_j`` (Jp,) in
     the plan's dtype); reg on a free row's diagonal, identity on a pinned
-    row. On the CPU the jump terms add in the order of the per-node jump
-    CSR, as K5's and K6's set-up add them (``chain_op::diag_block``)."""
+    row. The jump terms add in the order of the per-node jump CSR
+    (``kernels.ordered_sum``: on the card too), as K5's and K6's set-up add
+    them (``chain_op::diag_block``): the card and the CPU give the same
+    bits."""
     nc = cplan.chain_n
     kd_c = (cplan.chain_kax - cplan.chain_kbd) * m_c
     kb_c = cplan.chain_kbd * m_c
@@ -312,9 +346,8 @@ def chain_diag(cplan, m_c, m_j, free_chain, reg: float):
             k3j = njp[i] * njp[j] * kd_j
             kj.append(k3j + kb_j if i == j else k3j)
     kj = torch.stack(kj)                                    # (9, Jp)
-    jidx = torch.cat([cplan.ja, cplan.jb])
-    jump = kj.new_zeros((9, n_chain + 1))                   # col N: padding
-    jump.index_add_(1, jidx, torch.cat([kj, kj], dim=1))
+    csr = cplan.k32 if kj.device.type == "cuda" else cplan
+    jump = ordered_sum(kj, csr.jump_ptr, csr.jump_ent, n_chain, shift=1)
     zero1 = kj.new_zeros((1,))
     planes = []
     for i in range(3):
@@ -324,7 +357,7 @@ def chain_diag(cplan, m_c, m_j, free_chain, reg: float):
             if i == j:
                 k3c = k3c + kb_c
             p = k3c + torch.cat([zero1, k3c[:-1]])         # both ends
-            p = p + jump[3 * i + j, :n_chain]
+            p = p + jump[3 * i + j]
             if i == j:
                 p = torch.where(free_chain, p + reg, 1.0)
             else:
@@ -436,27 +469,39 @@ def tree_factor_inputs(plan: TreePlan, fast: FastFactorData, cplan,
 
 
 def tree_factor_levels(plan: TreePlan, D_g, B_elem, katt, n_levels: int,
-                       level_left_fill=None):
+                       level_left_fill=None, launch=None):
     """The first ``n_levels`` levels' PCR factorization from
-    ``tree_factor_inputs``: every level goes through ``kernels.pcr_factor``
-    (K2 on CUDA), which returns the level's coefficients and its 6-column
-    corner solve together. Returns (alphas, betas, dinvs, att_b, fill_B,
-    dacc); ``level_left_fill[li]`` False skips a level's fill gather."""
+    ``tree_factor_inputs``: every level goes through K2, which returns the
+    level's coefficients and its 6-column corner solve together: on CUDA
+    tensors the plan's bound launch (``launch``, a
+    ``kernels.PcrFactorLaunch``: one launch a windowed level) or, without
+    one, the unbound ``kernels.pcr_factor``; on CPU tensors the plain
+    version. Each junction slot's Schur corrections add in the order
+    (level, side, path) of the plan's attachment CSR, on every device
+    (``kernels.ordered_sum``), the order of a sequential ``index_add_``.
+    Returns (alphas, betas, dinvs, att_b, fill_B, dacc);
+    ``level_left_fill[li]`` False skips a level's fill gather."""
     meta = plan.meta
     k3 = plan.k3
-    fill_B = k3.new_zeros((plan.n_paths + 1, 9))            # row-major
-    dacc = k3.new_zeros((9, plan.n_slots + 1))
+    P, S_tot = plan.n_paths, plan.n_slots
+    fill_B = k3.new_zeros((P + 1, 9))                       # row-major
+    # the Schur corrections by attachment entry 2·path + side; a level's
+    # entries are written once it is factored, so a slot's sum at its own
+    # level holds exactly the earlier levels' terms (the rest are +0)
+    dg = k3.new_zeros((P, 2, 9))
+    dg_planes = dg.view(2 * P, 9).T
 
     alphas, betas, dinvs, attb = [], [], [], []
     for li in range(n_levels):
         s0, s1 = meta.level_offsets[li], meta.level_offsets[li + 1]
         p0, p1 = meta.path_offsets[li], meta.path_offsets[li + 1]
-        D_l = D_g[:, s0:s1] + dacc[:, s0:s1]
+        D_l = D_g[:, s0:s1] + ordered_sum(dg_planes, plan.att_ptr[s0:s1 + 1],
+                                          plan.att_ent, s1 - s0)
         B_l = B_elem[:, s0:s1]
         if level_left_fill is None or level_left_fill[li]:
-            bf = fill_B[plan.left_fill[s0:s1]]             # (S_l, 9)
+            bf = fill_B[plan.left_fill[s0:s1]].T             # (9, S_l)
             flip = plan.left_fill_flip[s0:s1]
-            B_l = B_l + torch.where(flip, bf[:, TRANSPOSE9].T, bf.T)
+            B_l = B_l + torch.where(flip, transpose9(bf), bf)
 
         fg = plan.first_gpos[p0:p1] - s0
         lg = plan.last_gpos[p0:p1] - s0
@@ -466,8 +511,10 @@ def tree_factor_levels(plan: TreePlan, D_g, B_elem, katt, n_levels: int,
                          ab.transpose(-1, -2), ab)
         attb.append(ab)
 
-        al, be, dinv, xc = pcr_factor(D_l.contiguous(), B_l.contiguous(),
-                                      fg, lg, meta.level_steps[li])
+        D_l, B_l = D_l.contiguous(), B_l.contiguous()
+        al, be, dinv, xc = (
+            pcr_factor(D_l, B_l, fg, lg, meta.level_steps[li])
+            if launch is None else launch.factor(li, D_l, B_l))
         alphas.append(al)
         betas.append(be)
         dinvs.append(dinv)
@@ -476,24 +523,25 @@ def tree_factor_levels(plan: TreePlan, D_g, B_elem, katt, n_levels: int,
         Mll = x3[:, 3:6][:, :, lg].permute(2, 0, 1)
         Mfl = x3[:, 3:6][:, :, fg].permute(2, 0, 1)
         bl, br = ab[:, 0], ab[:, 1]
-        dg_l = -_mm(_mm(bl, Mff), bl.transpose(-1, -2))
-        dg_r = -_mm(_mm(br, Mll), br.transpose(-1, -2))
-        tgt = plan.att_tgt[p0:p1]
-        dacc.index_add_(1, tgt[:, 0], dg_l.reshape(-1, 9).T)
-        dacc.index_add_(1, tgt[:, 1], dg_r.reshape(-1, 9).T)
+        dg[p0:p1, 0] = -_mm(_mm(bl, Mff), bl.transpose(-1, -2)).reshape(-1, 9)
+        dg[p0:p1, 1] = -_mm(_mm(br, Mll), br.transpose(-1, -2)).reshape(-1, 9)
         fb = -_mm(_mm(bl, Mfl), br.transpose(-1, -2))
         fb = fb * plan.has_fill[p0:p1, None, None]
         fill_B[p0:p1] = fb.reshape(-1, 9)
 
     att_b = torch.cat(attb) if attb else k3.new_zeros((0, 2, 3, 3))
+    dacc = torch.cat([ordered_sum(dg_planes, plan.att_ptr, plan.att_ent,
+                                  S_tot), k3.new_zeros((9, 1))], dim=1)
     return tuple(alphas), tuple(betas), tuple(dinvs), att_b, fill_B, dacc
 
 
 def tree_factor_fast(plan: TreePlan, fast: FastFactorData, cplan,
                      active, free_now, free_chain, reg: float, conn,
-                     chain_act_b=None, jump_act_b=None) -> TreeFactor:
+                     chain_act_b=None, jump_act_b=None,
+                     launch=None) -> TreeFactor:
     """The numeric factorization under the unified ordering: the first
-    meta.n_pcr levels by PCR, the rest as one dense junction inverse."""
+    meta.n_pcr levels by PCR (through K2's bound ``launch`` on the card,
+    ``pcr_factor_launch``), the rest as one dense junction inverse."""
     meta = plan.meta
     S_tot = plan.n_slots
     D_g, B_elem, katt = tree_factor_inputs(
@@ -501,7 +549,7 @@ def tree_factor_fast(plan: TreePlan, fast: FastFactorData, cplan,
         chain_act_b, jump_act_b)
     L = n_pcr_levels(meta)
     alphas, betas, dinvs, att_b, fill_B, dacc = tree_factor_levels(
-        plan, D_g, B_elem, katt, L, fast.meta.level_left_fill)
+        plan, D_g, B_elem, katt, L, fast.meta.level_left_fill, launch)
     t0 = meta.level_offsets[L]
     sinv = (_dense_tail_factor(
         plan, D_g[:, t0:S_tot], dacc[:, t0:S_tot],
@@ -511,6 +559,39 @@ def tree_factor_fast(plan: TreePlan, fast: FastFactorData, cplan,
                       sinv=sinv)
 
 
+def tree_forward_sweep(plan: TreePlan, factor: TreeFactor, rp):
+    """The forward half of ``tree_apply_chain_planes``: per PCR level
+    y = T_l^{-1} r_l, where r_l is rp on the level's slots minus the
+    attachment products of earlier levels' paths, added to each junction
+    slot in the plan's attachment order (level, side, path) on every
+    device (``kernels.ordered_sum``); and the dense tail's right-hand side
+    the same way. Returns (ys, r_tail (3, S - t0))."""
+    meta = plan.meta
+    L = n_pcr_levels(meta)
+    S_tot = plan.n_slots
+    # minus the attachment products by entry 2·path + side
+    nv = rp.new_zeros((plan.n_paths, 2, 3))
+    nv_planes = nv.view(-1, 3).T
+
+    def rhs(a, b):
+        return ordered_sum(nv_planes, plan.att_ptr[a:b + 1], plan.att_ent,
+                           b - a, init=rp[:, a:b])
+
+    ys = []
+    for li in range(L):
+        s0, s1 = meta.level_offsets[li], meta.level_offsets[li + 1]
+        p0, p1 = meta.path_offsets[li], meta.path_offsets[li + 1]
+        y = pcr_apply(factor.alphas[li], factor.betas[li], factor.dinvs[li],
+                      rhs(s0, s1))
+        ys.append(y)
+        ab = factor.att_b[p0:p1]
+        fg = plan.first_gpos[p0:p1] - s0
+        lg = plan.last_gpos[p0:p1] - s0
+        nv[p0:p1, 0] = -_mv(ab[:, 0], y[:, fg].T)
+        nv[p0:p1, 1] = -_mv(ab[:, 1], y[:, lg].T)
+    return ys, rhs(meta.level_offsets[L], S_tot)
+
+
 def tree_apply_chain_planes(plan: TreePlan, factor: TreeFactor, rp):
     """z = K_tree^{-1} r on chain-ordered (3, >= S_tot) residual planes;
     returns the (3, S_tot) slot part (callers append the grip rows)."""
@@ -518,28 +599,11 @@ def tree_apply_chain_planes(plan: TreePlan, factor: TreeFactor, rp):
     L = n_pcr_levels(meta)
     S_tot = plan.n_slots
     t0 = meta.level_offsets[L]
-    racc = torch.cat([rp[:, :S_tot], rp.new_zeros((3, 1))], dim=1)
-
-    ys = []
-    for li in range(L):
-        s0, s1 = meta.level_offsets[li], meta.level_offsets[li + 1]
-        p0, p1 = meta.path_offsets[li], meta.path_offsets[li + 1]
-        y = pcr_apply(factor.alphas[li], factor.betas[li], factor.dinvs[li],
-                      racc[:, s0:s1].contiguous())
-        ys.append(y)
-        ab = factor.att_b[p0:p1]
-        fg = plan.first_gpos[p0:p1] - s0
-        lg = plan.last_gpos[p0:p1] - s0
-        tgt = plan.att_tgt[p0:p1]
-        v0 = _mv(ab[:, 0], y[:, fg].T)
-        v1 = _mv(ab[:, 1], y[:, lg].T)
-        racc.index_add_(1, tgt[:, 0], -v0.T)
-        racc.index_add_(1, tgt[:, 1], -v1.T)
-
+    ys, r_tail = tree_forward_sweep(plan, factor, rp)
     u_all = rp.new_zeros((3, S_tot + 1))
     if S_tot > t0:
-        r_tail = racc[:, t0:S_tot].T.reshape(-1)
-        u_all[:, t0:S_tot] = (factor.sinv @ r_tail).reshape(-1, 3).T
+        u_all[:, t0:S_tot] = (factor.sinv @ r_tail.T.reshape(-1)) \
+            .reshape(-1, 3).T
     for li in range(L - 1, -1, -1):
         s0, s1 = meta.level_offsets[li], meta.level_offsets[li + 1]
         p0, p1 = meta.path_offsets[li], meta.path_offsets[li + 1]
@@ -642,6 +706,31 @@ def path_windows(fg, lg, lo, po, window: int):
             np.asarray(starts, np.int64), np.asarray(lens, np.int64))
 
 
+def pcr_factor_launch(plan: TreePlan,
+                      window: int = TREE_WINDOW) -> PcrFactorLaunch:
+    """K2 bound to the plan's PCR levels (``kernels.PcrFactorLaunch``):
+    per level its corner flags and K6's path-aligned windows, where the
+    level has them (``window`` is lowered by tests only)."""
+    meta = plan.meta
+    L = n_pcr_levels(meta)
+    lo = np.asarray(meta.level_offsets, np.int64)
+    po = np.asarray(meta.path_offsets, np.int64)
+    fg, lg = plan.first_gpos.cpu().numpy(), plan.last_gpos.cpu().numpy()
+    windowed, woff, wstart, wlen = path_windows(fg, lg, lo[:L + 1],
+                                                po[:L + 1], window)
+    levels = []
+    for li in range(L):
+        S = int(lo[li + 1] - lo[li])
+        corner = np.zeros(S, np.int32)
+        corner[fg[po[li]:po[li + 1]] - lo[li]] |= 1
+        corner[lg[po[li]:po[li + 1]] - lo[li]] |= 2
+        w = slice(woff[li], woff[li + 1])
+        levels.append((S, meta.level_steps[li], corner,
+                       (wstart[w] - lo[li], wlen[w]) if windowed[li]
+                       else None))
+    return PcrFactorLaunch(levels, plan.slots.device)
+
+
 def build_tree_kernel_tables(plan: TreePlan, conn,
                              window: int = TREE_WINDOW) -> TreeKernelTables:
     """``conn`` (E, 2) is the model's element table; ``window`` (at most
@@ -673,11 +762,7 @@ def build_tree_kernel_tables(plan: TreePlan, conn,
     af = host(plan.att_fill).reshape(-1)
     att_fill = np.where(af < P, af, -1)
     ent = np.nonzero(tgt < S)[0]                  # entry = 2·path + side
-    # per junction slot: by level (path index order), then side, then path
-    key = np.lexsort((ent >> 1, ent & 1, path_level[ent >> 1], tgt[ent]))
-    att_ent = ent[key]
-    att_ptr = np.zeros(S + 1, np.int64)
-    att_ptr[1:] = np.cumsum(np.bincount(tgt[ent], minlength=S))
+    att_ptr, att_ent = attachment_csr(tgt, po, S)
     has_lf = left_fill >= 0
     ordered = bool(
         np.all(path_level[lf[has_lf]] < slot_level[has_lf])

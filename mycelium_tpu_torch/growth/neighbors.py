@@ -66,6 +66,10 @@ def check_layout(cfg: GrowthConfig) -> int:
             "the corner-window anastomosis query needs (h0 + tol)/2 + tol "
             "<= voxel_size/2; the 9-cell window for other configurations "
             "is not ported yet: ROADMAP queue A item 13")
+    if cfg.max_tips_per_cell > 32:
+        raise NotImplementedError(
+            "the anastomosis scan kernel takes a corner cell's tips one a "
+            "lane of a warp: max_tips_per_cell must be at most 32")
     return grid_dims(cfg)[0]
 
 
@@ -198,12 +202,23 @@ def grid_insert_finalized(grid: SegGrid, st: GrowthState,
                    n_seen=max(grid.n_seen, st.n_seg)), dropped
 
 
-def tip_tables(st: GrowthState, cfg: GrowthConfig):
+class TipTables(NamedTuple):
+    """The per-step tables of the anastomosis query (``tip_tables``)."""
+    ov_slot: torch.Tensor    # (H,) int32 tip-segment slots sorted by cell
+    ov_start: torch.Tensor   # (M,) int32 each cell's first overlay entry
+    ov_count: torch.Tensor   # (M,) int32
+    scan_cell: torch.Tensor  # (H,) int32 corner cell in the table, -1
+    tips: tuple              # the tip table by corner cell: (order (H,),
+                             # start (M,), count (M,)) int32, what K4 reads
+    dropped: torch.Tensor    # () bool: a cell's capacity overflowed
+
+
+def tip_tables(st: GrowthState, cfg: GrowthConfig) -> TipTables:
     """Per step, over the H hypha rows: the tip-segment overlay (slot ids
-    sorted by midpoint cell with per-cell offsets and counts) and each
-    active tip's corner cell in the tip table (-1 for a hypha that is not
-    in it: no active tip, or rank >= max_tips_per_cell in its corner
-    cell). Returns (ov_slot, ov_start, ov_count, scan_cell, dropped)."""
+    sorted by midpoint cell with per-cell offsets and counts), each active
+    tip's corner cell in the tip table (-1 for a hypha that is not in it:
+    no active tip, or rank >= max_tips_per_cell in its corner cell), and
+    that table bucketed by corner cell."""
     H = st.tip.shape[0]
     g, _ = grid_dims(cfg)
     M = g * g
@@ -220,8 +235,11 @@ def tip_tables(st: GrowthState, cfg: GrowthConfig):
     tb = _bucket(tip_cell, M, cfg.max_tips_per_cell)
     in_tbl = (tip_cell < M) & (tb.rank < cfg.max_tips_per_cell)
     scan_cell = torch.where(in_tbl, tip_cell, torch.full_like(tip_cell, -1))
-    return (t[ov.order].to(torch.int32), ov.start, ov.count,
-            scan_cell.to(torch.int32), ov.dropped | tb.dropped)
+    return TipTables(
+        ov_slot=t[ov.order].to(torch.int32), ov_start=ov.start,
+        ov_count=ov.count, scan_cell=scan_cell.to(torch.int32),
+        tips=(tb.order.to(torch.int32), tb.start, tb.count),
+        dropped=ov.dropped | tb.dropped)
 
 
 def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
@@ -236,10 +254,11 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
     g = check_layout(cfg)
     N = st.capacity
     grid, ins_dropped = grid_insert_finalized(st.grid, st, cfg)
-    ov_slot, ov_start, ov_count, scan_cell, tbl_dropped = tip_tables(st, cfg)
+    tb = tip_tables(st, cfg)
+    scan_cell = tb.scan_cell
     d2, tt, wid = scan(st.tip, scan_cell, st.start, st.end, grid.ids,
-                       grid.geo, grid.count, cfg.max_per_cell, ov_slot,
-                       ov_start, ov_count, g, N)
+                       grid.geo, grid.count, cfg.max_per_cell, tb.ov_slot,
+                       tb.ov_start, tb.ov_count, g, N, tb.tips)
 
     # the winner's closest point, recomputed per hypha from its slot
     w = wid.long().clamp(max=N)
@@ -253,4 +272,4 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
         end=scatter_drop(st.end, idx, proj),
         state=scatter_drop(st.state, idx, torch.full_like(idx, ANASTOMOSED)),
         grid=grid,
-        overflow=st.overflow | ins_dropped | tbl_dropped)
+        overflow=st.overflow | ins_dropped | tb.dropped)

@@ -16,7 +16,10 @@ keep the candidate with the strictly smallest squared distance
 (r = 1/|ab|², 0 for a degenerate segment). Returns (d², tt, id) per hypha:
 (inf, 0, N) for a hypha outside the table or without a candidate. The
 grid's (a, ab, r) are stored per entry; an overlay candidate's are
-computed from ``start``/``end`` by slot.
+computed from ``start``/``end`` by slot. The kernel works by corner cell:
+it takes the tip table bucketed by corner cell (``tips``: the hyphae
+sorted by cell, each cell's first position and count), which the plain
+version does not read.
 
 The nesting (offsets outermost, then source, then rank) and the
 arithmetic are the JAX package's XLA scan (neighbors.py:585-620), and the
@@ -82,11 +85,11 @@ def _inv_sq_length(ab):
 
 def anast_scan_plain(tip_slot, tip_cell, start, end, grid_ids, grid_geo,
                      grid_count, cap: int, ov_slot, ov_start, ov_count,
-                     g: int, n_slots: int):
+                     g: int, n_slots: int, tips=None):
     """The plain PyTorch version, any device: per (offset, source), all
     of a cell's candidates at once; the first smallest within the pass,
     then a strict-< merge in visiting order (the sequential scan's
-    answer)."""
+    answer). ``tips`` is not read."""
     H = tip_slot.shape[0]
     dev, dtype = start.device, start.dtype
     N = n_slots
@@ -168,17 +171,29 @@ def _check(name, t, shape, dtype):
 
 def anast_scan(tip_slot, tip_cell, start, end, grid_ids, grid_geo,
                grid_count, cap: int, ov_slot, ov_start, ov_count, g: int,
-               n_slots: int):
+               n_slots: int, tips=None):
     """The scan: the CUDA kernel for CUDA tensors (float32 only, raises
-    otherwise), the plain version for CPU tensors."""
+    otherwise; ``tips`` = (order (H,), start (M,), count (M,)) int32, the
+    tip table by corner cell, at most 32 a cell: ``neighbors.tip_tables``),
+    the plain version for CPU tensors."""
     if start.device.type == "cpu":
         return anast_scan_plain(tip_slot, tip_cell, start, end, grid_ids,
                                 grid_geo, grid_count, cap, ov_slot,
                                 ov_start, ov_count, g, n_slots)
+    if tips is None:
+        raise ValueError("anast_scan: the kernel needs the tip table by "
+                         "corner cell (tips = (order, start, count))")
     H, N, M = tip_slot.shape[0], n_slots, g * g
+    if max(H, M * cap, 3 * N) >= 2 ** 31:
+        raise ValueError("anast_scan: the kernel indexes with 32 bits: H, "
+                         "g²·cap and 3·n_slots must stay below 2^31")
     f32, i32 = torch.float32, torch.int32
+    order, tstart, tcount = tips
     for name, t, shape, dt in (
             ("tip_slot", tip_slot, (H,), i32), ("tip_cell", tip_cell, (H,), i32),
+            ("tips.order", order, (H,), i32),
+            ("tips.start", tstart, (M,), i32),
+            ("tips.count", tcount, (M,), i32),
             ("start", start, (N, 3), f32), ("end", end, (N, 3), f32),
             ("grid_ids", grid_ids, (M * cap,), i32),
             ("grid_geo", grid_geo, (M * cap, 8), f32),
@@ -192,7 +207,8 @@ def anast_scan(tip_slot, tip_cell, start, end, grid_ids, grid_geo,
     ids = torch.empty((H,), dtype=i32, device=start.device)
     lib = build.library()
     rc = lib.anast_scan_f32(
-        tip_slot.data_ptr(), tip_cell.data_ptr(), start.data_ptr(),
+        tip_slot.data_ptr(), tip_cell.data_ptr(), order.data_ptr(),
+        tstart.data_ptr(), tcount.data_ptr(), start.data_ptr(),
         end.data_ptr(), grid_ids.data_ptr(), grid_geo.data_ptr(),
         grid_count.data_ptr(), ov_slot.data_ptr(), ov_start.data_ptr(),
         ov_count.data_ptr(), d2.data_ptr(), tt.data_ptr(), ids.data_ptr(),

@@ -60,14 +60,22 @@ _SIGNATURES = {
     # stream
     "chain_matvec_f32": [ctypes.POINTER(_P), ctypes.c_int, _I64,
                          ctypes.c_float, _P, _P, ctypes.c_int, _P],
-    # D, B, rhs, al, be, dinv, xc, work, S, steps, stream
-    "pcr_factor_f32": [_P] * 8 + [_I64, ctypes.c_int, _P],
+    # D, B, corner, al, be, dinv, xc, work, win_start, win_len, n_win, S,
+    # steps, stream
+    "pcr_factor_f32": [_P] * 10 + [ctypes.c_int, _I64, ctypes.c_int, _P],
     # al, be, dinv, r, u, S, steps, stream
     "pcr_apply_f32": [_P] * 5 + [_I64, ctypes.c_int, _P],
     "pcr_apply_max_steps": [],
-    # tip_slot, tip_cell, start, end, gids, ggeo, gcount, ov_slot,
-    # ov_start, ov_count, d2, tt, id, H, cap, g, n_slots, stream
-    "anast_scan_f32": [_P] * 13 + [_I64, ctypes.c_int, ctypes.c_int,
+    # vals, vals' strides (k, term), ptr, ent, shift, init, init's strides
+    # (k, segment), out, n, K, stream
+    "ordered_sum_f32": [_P, _I64, _I64, _P, _P, ctypes.c_int, _P, _I64,
+                        _I64, _P, _I64, ctypes.c_int, _P],
+    "ordered_sum_f64": [_P, _I64, _I64, _P, _P, ctypes.c_int, _P, _I64,
+                        _I64, _P, _I64, ctypes.c_int, _P],
+    # tip_slot, tip_cell, tip_order, tip_start, tip_count, start, end,
+    # gids, ggeo, gcount, ov_slot, ov_start, ov_count, d2, tt, id, H, cap,
+    # g, n_slots, stream
+    "anast_scan_f32": [_P] * 16 + [_I64, ctypes.c_int, ctypes.c_int,
                                    ctypes.c_int, _P],
     # ptrs, n_ptrs, ints, n_ints (the enums Ptr and Int of chain_cg.cu),
     # active, anchored, x0, x, stats, dy_top, dy_bot, rtol, reg, max_iter,
@@ -97,7 +105,8 @@ _SIGNATURES = {
 }
 
 _launches = {"chain_matvec": 0, "pcr_factor": 0, "pcr_apply": 0,
-             "anast_scan": 0, "chain_cg": 0, "tree_cg": 0}
+             "anast_scan": 0, "chain_cg": 0, "tree_cg": 0,
+             "ordered_sum": 0}
 
 
 def count_launch(name: str) -> None:

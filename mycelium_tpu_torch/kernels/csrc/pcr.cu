@@ -17,19 +17,38 @@
 // zero; the TPU versions roll instead, and both are exact because the
 // couplings are zero at every path end.
 //
-// What bounds them on the card: bytes. K2 reads and writes 45 planes of
-// state plus 18 coefficient planes a round (~250 B a slot a round) and
-// runs once per factorization. K3 runs twice per PCR level in every CG
-// iteration and streams 18 coefficient planes a round plus 9 for dinv:
-// ~(72·steps + 36) bytes a slot, e.g. 540 B at steps = 7.
+// What bounds them on the card. K2 runs once per level per factorization
+// (the hybrid route's). Its least time is bytes: D and B in, the round
+// coefficients, dinv and the corner solutions out, ~(72·steps + 184) B a
+// slot (~0.01 ms at the 309k plan's largest level). What held the global
+// form back was everything else: steps + 2 launches, the 45 state planes
+// read and written through device memory every round (~250 B a slot a
+// round), and the wrapper's 18 corner planes built by 7 PyTorch
+// operations.
 //
 // The per-slot bodies live in pcr.cuh, which the whole-solve kernel K6
 // (tree_cg.cu) shares.
 //
-// Design. K2 launches once per round over all S slots with the state in
-// global ping-pong buffers (the wrapper allocates them): each thread
-// recomputes the two neighbour inverses it needs instead of storing dinv,
-// which saves a plane pass per round. K3 is one launch per level: each
+// Design. K2 takes a level cut into K6's path-aligned windows
+// (fea/tree_factor.py::path_windows: runs of whole paths of at most
+// TREE_CG_WINDOW slots; PCR never couples two paths, so a window's rounds
+// need nothing outside it): one launch, one block a window. The block
+// forms its state as it loads D and B (L = B^T, R = B[s+1]) and the corner
+// right-hand sides from a per-slot flag (a path's first and last slot),
+// runs every round in shared memory (90 planes of the window, 92 KB, two
+// blocks an SM) with pcr.cuh's factor_rounds_window, K6's own code, writes
+// each round's coefficients as they are formed, and dinv and the corner
+// solution once. The results are the whole level's up to the sign of a
+// zero. A level with a path longer than the window keeps the global form:
+// one launch per round over all S slots with the state in global ping-pong
+// buffers, each thread recomputing the two neighbour inverses it needs
+// instead of storing dinv. The bound launch (kernels/pcr.py::
+// PcrFactorLaunch) holds the windows, flags, outputs and work space, so a
+// factorization allocates nothing and reads nothing back.
+//
+// K3 runs twice per PCR level in every CG iteration and streams 18
+// coefficient planes a round plus 9 for dinv: ~(72·steps + 36) bytes a
+// slot, e.g. 540 B at steps = 7. It is one launch per level: each
 // block owns a chunk of CHUNK central slots, loads the residual over the
 // chunk plus a halo of 2^steps - 1 slots on both sides into shared memory,
 // runs every round there (coefficients stream from global memory, each
@@ -47,23 +66,77 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChunk = 1024;
+#ifndef TREE_CG_WINDOW
+#error "TREE_CG_WINDOW (slots of a path-aligned window) is set by the build"
+#endif
+constexpr int kWindow = TREE_CG_WINDOW;   // K6's path-aligned windows
 
-// L = B^T, R = B[i+1]; state D and the corner right-hand sides copied in
-__global__ void pcr_init_kernel(const float* __restrict__ D,
-                                const float* __restrict__ B,
-                                const float* __restrict__ rhs,
-                                float* __restrict__ Dw, float* __restrict__ Lw,
-                                float* __restrict__ Rw, float* __restrict__ rw,
-                                long long S) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= S) return;
+// The state of slot s at index i of the 45 planes `st_` (stride st): D,
+// L = B^T, R = B[s+1] (zero past the level's end) and the corner right-hand
+// sides, unit columns 0:3 at a path's first slot (corner bit 0) and 3:6 at
+// its last (bit 1)
+__device__ __forceinline__ void init_slot(const float* __restrict__ D,
+                                          const float* __restrict__ B,
+                                          const int* __restrict__ corner,
+                                          long long S, long long s,
+                                          float* st_, long long st,
+                                          long long i) {
   const int T[9] = {0, 3, 6, 1, 4, 7, 2, 5, 8};
   for (int c = 0; c < 9; ++c) {
-    Dw[c * S + i] = D[c * S + i];
-    Lw[c * S + i] = B[T[c] * S + i];
-    Rw[c * S + i] = (i + 1 < S) ? B[c * S + i + 1] : 0.0f;
+    st_[c * st + i] = D[c * S + s];
+    st_[(9 + c) * st + i] = B[T[c] * S + s];
+    st_[(18 + c) * st + i] = (s + 1 < S) ? B[c * S + s + 1] : 0.0f;
   }
-  for (int c = 0; c < 18; ++c) rw[c * S + i] = rhs[c * S + i];
+  const int k = corner[s];
+  for (int q = 0; q < 3; ++q)
+    for (int j = 0; j < 6; ++j) {
+      const bool one = j < 3 ? ((k & 1) && q == j) : ((k & 2) && q == j - 3);
+      st_[(27 + 6 * q + j) * st + i] = one ? 1.0f : 0.0f;
+    }
+}
+
+__global__ void pcr_init_kernel(const float* __restrict__ D,
+                                const float* __restrict__ B,
+                                const int* __restrict__ corner,
+                                float* __restrict__ w, long long S) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= S) return;
+  init_slot(D, B, corner, S, i, w, S, i);
+}
+
+__device__ __forceinline__ void store_final(const float* cur, long long st,
+                                            long long len, long long i,
+                                            float* __restrict__ dinv,
+                                            float* __restrict__ xc,
+                                            long long S, long long s) {
+  float d[9], x[18];
+  pcr::final_slot(cur, st, len, i, d, x);
+  for (int c = 0; c < 9; ++c) dinv[c * S + s] = d[c];
+  for (int c = 0; c < 18; ++c) xc[c * S + s] = x[c];
+}
+
+// K2 on a level cut into path-aligned windows: one block a window, every
+// round in shared memory (pcr.cuh's factor_rounds_window, K6's code), the
+// round coefficients written as they are formed, dinv and the corner
+// solution once at the end
+__global__ void __launch_bounds__(kThreads) pcr_factor_window_kernel(
+    const float* __restrict__ D, const float* __restrict__ B,
+    const int* __restrict__ corner, const int* __restrict__ win_start,
+    const int* __restrict__ win_len, float* al, float* be,
+    float* __restrict__ dinv, float* __restrict__ xc, long long S,
+    int steps) {
+  extern __shared__ float smem[];
+  float* cur = smem;
+  float* nxt = smem + pcr::kStatePlanes * kWindow;
+  const long long ws = win_start[blockIdx.x];
+  const int wl = win_len[blockIdx.x];
+  for (int i = threadIdx.x; i < wl; i += blockDim.x)
+    init_slot(D, B, corner, S, ws + i, cur, kWindow, i);
+  __syncthreads();
+  const float* fin = pcr::factor_rounds_window(cur, nxt, kWindow, wl, steps,
+                                               al + ws, be + ws, S);
+  for (int i = threadIdx.x; i < wl; i += blockDim.x)
+    store_final(fin, kWindow, wl, i, dinv, xc, S, ws + i);
 }
 
 __global__ void pcr_round_kernel(const float* cur, float* nxt, float* al,
@@ -77,10 +150,7 @@ __global__ void pcr_final_kernel(const float* cur, float* __restrict__ dinv,
                                  float* __restrict__ xc, long long S) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= S) return;
-  float d[9], x[18];
-  pcr::final_slot(cur, S, S, i, d, x);
-  for (int c = 0; c < 9; ++c) dinv[c * S + i] = d[c];
-  for (int c = 0; c < 18; ++c) xc[c * S + i] = x[c];
+  store_final(cur, S, S, i, dinv, xc, S, i);
 }
 
 __global__ void pcr_apply_kernel(const float* al, const float* be,
@@ -116,16 +186,34 @@ __global__ void pcr_apply_kernel(const float* al, const float* be,
 
 }  // namespace
 
-// work: 90 planes of S floats (two sets of D, L, R (9 each) + r (18))
-extern "C" int pcr_factor_f32(const float* D, const float* B, const float* rhs,
-                              float* al, float* be, float* dinv, float* xc,
-                              float* work, long long S, int steps,
+// corner (S,): bit 0 a path's first slot, bit 1 its last. With n_win > 0
+// windows (level-local first slots and lengths, each at most kWindow whole
+// paths) one launch; else the global rounds on work, 90 planes of S floats
+// (two sets of D, L, R (9 each) + r (18)): steps + 2 launches.
+extern "C" int pcr_factor_f32(const float* D, const float* B,
+                              const int* corner, float* al, float* be,
+                              float* dinv, float* xc, float* work,
+                              const int* win_start, const int* win_len,
+                              int n_win, long long S, int steps,
                               cudaStream_t stream) {
   if (S <= 0) return 0;
+  if (n_win > 0) {
+    const int smem = (int)(sizeof(float) * 2 * pcr::kStatePlanes * kWindow);
+    static bool attr = false;   // raised once: lowering it would hurt later
+    if (!attr) {
+      cudaError_t e = cudaFuncSetAttribute(
+          pcr_factor_window_kernel,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (e != cudaSuccess) return (int)e;
+      attr = true;
+    }
+    pcr_factor_window_kernel<<<n_win, kThreads, smem, stream>>>(
+        D, B, corner, win_start, win_len, al, be, dinv, xc, S, steps);
+    return (int)cudaGetLastError();
+  }
   unsigned blocks = (unsigned)((S + kThreads - 1) / kThreads);
   float* set[2] = {work, work + 45 * S};
-  pcr_init_kernel<<<blocks, kThreads, 0, stream>>>(
-      D, B, rhs, set[0], set[0] + 9 * S, set[0] + 18 * S, set[0] + 27 * S, S);
+  pcr_init_kernel<<<blocks, kThreads, 0, stream>>>(D, B, corner, set[0], S);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   long long s = 1;

@@ -12,18 +12,31 @@ L_i = B[i]^T and to i+1 through R_i = B[i+1]; slots outside [0, S) read as
 zero (the TPU versions roll; both are exact because couplings vanish at
 path ends). The plain functions are the counterparts of
 ``mycelium_tpu/fea/tree_jax.py::_pcr_coeffs``/``_pcr_apply``.
+
+K2 is bound once per plan (``PcrFactorLaunch``, built with the model by
+``fea/tree_factor.py::pcr_factor_launch``): a level cut into path-aligned
+windows is one launch that allocates nothing and reads nothing back; a
+level with a longer path goes to the unbound ``pcr_factor``, which takes
+any level on the global rounds.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
 
 from . import build
 
-TRANSPOSE9 = [0, 3, 6, 1, 4, 7, 2, 5, 8]   # planes of a 3x3 block transposed
+
+def transpose9(m):
+    """(9, ...) component planes of 3x3 blocks, each block transposed: a
+    copy through a transposed view, so no index list crosses to the
+    device."""
+    return m.reshape((3, 3) + tuple(m.shape[1:])).transpose(0, 1) \
+        .reshape(m.shape)
 
 
 def _sh(x, k: int):
@@ -72,7 +85,7 @@ def _inv9(m):
 def pcr_coeffs_plain(D, B, steps: int):
     """PCR recurrence: returns (alphas, betas) (steps, 9, S) and dinv
     (9, S)."""
-    L = B[TRANSPOSE9]
+    L = transpose9(B)
     R = _sh(B, 1)
     alphas, betas = [], []
     s = 1
@@ -123,36 +136,139 @@ def pcr_factor_plain(D, B, fg, lg, steps: int):
     return al, be, dinv, X.transpose(1, 2).reshape(18, S)
 
 
-def _check(fn, name, t, shape):
-    if t.device.type != "cuda" or t.dtype != torch.float32 or \
+def _check(fn, name, t, shape, dtype=torch.float32):
+    if t.device.type != "cuda" or t.dtype != dtype or \
             tuple(t.shape) != tuple(shape) or not t.is_contiguous():
         raise ValueError(
-            f"{fn}: {name} must be a contiguous float32 CUDA tensor of shape "
+            f"{fn}: {name} must be a contiguous {dtype} CUDA tensor of shape "
             f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} on {t.device} "
             f"(contiguous={t.is_contiguous()})")
 
 
-def pcr_factor(D, B, fg, lg, steps: int):
-    """One PCR level's factorization: K2 for CUDA tensors (float32 only,
-    raises otherwise), the plain version for CPU tensors."""
-    if D.device.type == "cpu":
-        return pcr_factor_plain(D, B, fg, lg, steps)
+def corner_flags(fg, lg, S: int, device):
+    """(S,) int32: bit 0 at every path's first slot, bit 1 at its last: the
+    corner right-hand sides as K2 reads them."""
+    c = torch.zeros(S, dtype=torch.int32, device=device)
+    c[fg] = 1
+    c[lg] = c[lg] + 2
+    return c
+
+
+def _launch_k2(D, B, corner, al, be, dinv, xc, work, win_start, win_len,
+               n_win: int, S: int, steps: int, stream) -> None:
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+    rc = build.library().pcr_factor_f32(
+        D.data_ptr(), B.data_ptr(), corner.data_ptr(), al.data_ptr(),
+        be.data_ptr(), dinv.data_ptr(), xc.data_ptr(), ptr(work),
+        ptr(win_start), ptr(win_len), n_win, S, steps, stream)
+    build.check(rc, "pcr_factor_f32")
+    build.count_launch("pcr_factor")
+
+
+def _factor_global(D, B, corner, steps: int):
+    """K2 on its global rounds (steps + 2 launches), outputs and work
+    space allocated here."""
     S = D.shape[1]
-    _check("pcr_factor", "D", D, (9, S))
-    _check("pcr_factor", "B", B, (9, S))
-    rhs = corner_rhs(fg, lg, S, D.dtype, D.device)
     al = torch.empty((steps, 9, S), dtype=D.dtype, device=D.device)
     be = torch.empty_like(al)
     dinv = torch.empty((9, S), dtype=D.dtype, device=D.device)
     xc = torch.empty((18, S), dtype=D.dtype, device=D.device)
     work = torch.empty((90, S), dtype=D.dtype, device=D.device)
-    rc = build.library().pcr_factor_f32(
-        D.data_ptr(), B.data_ptr(), rhs.data_ptr(), al.data_ptr(),
-        be.data_ptr(), dinv.data_ptr(), xc.data_ptr(), work.data_ptr(), S,
-        steps, build.stream_handle(D))
-    build.check(rc, "pcr_factor_f32")
-    build.count_launch("pcr_factor")
+    _launch_k2(D, B, corner, al, be, dinv, xc, work, None, None, 0, S, steps,
+               build.stream_handle(D))
     return al, be, dinv, xc
+
+
+def pcr_factor(D, B, fg, lg, steps: int):
+    """One PCR level's factorization, unbound: K2 on its global rounds for
+    CUDA tensors (float32 only, raises otherwise; allocates its outputs),
+    the plain version for CPU tensors."""
+    if D.device.type == "cpu":
+        return pcr_factor_plain(D, B, fg, lg, steps)
+    S = D.shape[1]
+    _check("pcr_factor", "D", D, (9, S))
+    _check("pcr_factor", "B", B, (9, S))
+    return _factor_global(D, B, corner_flags(fg, lg, S, D.device), steps)
+
+
+class PcrFactorLaunch:
+    """K2 bound to the PCR levels of one plan. Per level: its slots and
+    rounds, its corner flags, and, where its paths tile it and none is
+    longer than the kernel's window, its path-aligned windows (level-local
+    first slots and lengths). A windowed level is one launch into the
+    launch's own output buffers, so it allocates nothing and reads nothing
+    back; another level goes to the unbound global rounds
+    (``pcr_factor``'s, which allocate).
+
+    Who owns the results: one set of buffers, a view per windowed level,
+    allocated at the first factorization on the card. A factorization
+    overwrites the previous one's coefficients of those levels: a caller
+    that keeps a factorization (the ramp keeps one at a time) copies it
+    before it factors again.
+
+    ``levels``: per level (S, steps, corner (S,) int32 host array, windows
+    (first slots, lengths) host arrays or None)."""
+
+    def __init__(self, levels, device):
+        self.device = torch.device(device)
+        self.sizes = [int(S) for S, _, _, _ in levels]
+        self.steps = [int(k) for _, k, _, _ in levels]
+        self.windowed = tuple(w is not None and len(w[0]) > 0
+                              for _, _, _, w in levels)
+        def i32(a):
+            return torch.as_tensor(a, dtype=torch.int32, device=self.device)
+        self.corner = [i32(c) for _, _, c, _ in levels]
+        self.windows = [(i32(w[0]), i32(w[1]), len(w[0])) if ok
+                        else (None, None, 0)
+                        for (_, _, _, w), ok in zip(levels, self.windowed)]
+        self._out = None
+
+    def _allocate(self) -> None:
+        # per windowed level and slot: the round coefficients (2·steps·9),
+        # dinv (9) and the corner solutions (18)
+        n = sum((18 * k + 27) * S for S, k, w in
+                zip(self.sizes, self.steps, self.windowed) if w)
+        flat = torch.empty(n, dtype=torch.float32, device=self.device)
+        self._out, off = [], 0
+        for S, k, w in zip(self.sizes, self.steps, self.windowed):
+            parts = []
+            for shape in ((k, 9, S), (k, 9, S), (9, S), (18, S)) if w else ():
+                n = math.prod(shape)
+                parts.append(flat[off:off + n].view(shape))
+                off += n
+            self._out.append(tuple(parts))
+        index = self.device.index if self.device.index is not None \
+            else torch.cuda.current_device()
+        self._stream = functools.partial(build.raw_stream, index)
+
+    def factor(self, li: int, D, B):
+        """Level ``li``'s factorization (al, be, dinv, xc) from its (9, S)
+        D and B: on CUDA tensors (float32 only, raises otherwise) one
+        launch on a windowed level, the global rounds on another; on CPU
+        tensors the plain version."""
+        if D.device.type == "cpu":
+            return self.plain(li, D, B)
+        S, steps = self.sizes[li], self.steps[li]
+        _check("pcr_factor", "D", D, (9, S))
+        _check("pcr_factor", "B", B, (9, S))
+        if not self.windowed[li]:
+            return _factor_global(D, B, self.corner[li], steps)
+        if self._out is None:
+            self._allocate()
+        al, be, dinv, xc = self._out[li]
+        start, lens, n_win = self.windows[li]
+        _launch_k2(D, B, self.corner[li], al, be, dinv, xc, None, start,
+                   lens, n_win, S, steps, self._stream())
+        return al, be, dinv, xc
+
+    def plain(self, li: int, D, B):
+        """The plain version of level ``li`` on D's device: the oracle, on
+        copies of the same inputs on the CPU."""
+        c = self.corner[li].to(D.device)
+        fg = torch.nonzero(c & 1).flatten()
+        lg = torch.nonzero(c & 2).flatten()
+        return pcr_factor_plain(D, B, fg, lg, self.steps[li])
 
 
 @functools.cache

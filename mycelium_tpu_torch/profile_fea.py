@@ -1,7 +1,9 @@
 """Where a cold pull-test solve's time goes on the card, on each route.
 
     python -m mycelium_tpu_torch.profile_fea [--nodes 7375 33000 103000]
-        [--reps 5] [--out DIR]
+        [--reps 5] [--out DIR] [--ramp-routes]
+    python -m mycelium_tpu_torch.profile_fea --grown large medium
+    python -m mycelium_tpu_torch.profile_fea --sweep TRIALS
 
 For each synthetic mesh (``meshes.synthetic_mesh``, the configuration of
 ``hybrid_fea_config``, coarse weight 0) it solves the full-displacement
@@ -33,6 +35,22 @@ reports:
 Every mesh's wall readings (1 and 4) are taken before any mesh's syncs and
 traces (2 and 3): a ``torch.profiler`` window slows every later launch of
 the process on the host.
+
+With ``--grown PRESET [PRESET ...]`` it measures fault P6 on networks that
+users grow instead: each growth preset grown on the card through
+``run_growth``, its network exported (``state_mesh``) and built with
+``hybrid_fea_config()``, then ``ramp_routes``: the 40-step fracturing ramp
+on K6 (every level on PCR) and on the hybrid with the configuration's
+``tree_dense_tail`` (the reference's route above its memory gate). Where
+no element fractures at the configuration's pull, it names the
+displacement at which the first element would (the largest element strain
+of the linear solve at full pull, scaled to ``max_strain``) and ramps both
+routes again to twice that displacement. Where the two routes' fracture
+patterns part there, it says why (``parting``): the stress of the
+elements where they first part against the fracture stress and against
+the converged solve's, each route's stress error there, the same ramp in
+float64 on the CPU at the configuration's rtol and converged (1e-10) as
+the arbiter, and both routes again at rtol 1e-7.
 
 With ``--sweep TRIALS`` it runs only the solver sweep instead, on each
 mesh: ``run_solver_sweep`` in chip_smoke.py's configuration (3 ramp steps,
@@ -163,13 +181,14 @@ def kernel_ms(solve, reps: int, name: str) -> float:
                and name in e.name) / 1e3 / reps
 
 
-def ramp_routes(coords, conn, cfg, model) -> dict:
+def ramp_routes(coords, conn, cfg, model, recs=None) -> dict:
     """The 40-step fracturing ramp on K6 and on the forced hybrid: steps
     reached, iterations a step, wall seconds, and the largest difference
     of the two routes' records (displacement as a share of its largest
-    entry, force, the active masks)."""
+    entry, force, the active masks). ``recs`` (a dict) receives each
+    route's ``RampResult``."""
     from .fea.ramp import SolveDivergedError
-    out, recs = {}, {}
+    out, recs = {}, {} if recs is None else recs
     for name, on in (("tree_cg", True), ("hybrid", False)):
         m = dataclasses.replace(model, tree_kernel=on)
         _sync()
@@ -197,6 +216,124 @@ def ramp_routes(coords, conn, cfg, model) -> dict:
                                          1e-300)),
             active_differ=int((a.active_record[:n]
                                != b.active_record[:n]).sum()))
+    return out
+
+
+def against(r, ref) -> dict:
+    """A ramp's fracture pattern against a reference ramp's: the active
+    flags that differ over the steps both reached, the first step where
+    they do (None: never), and each one's fractured elements at its end."""
+    n = min(r.active_record.shape[0], ref.active_record.shape[0])
+    d = r.active_record[:n] != ref.active_record[:n]
+    return dict(active_differ=int(d.sum()),
+                first_step=int(np.argmax(d.any(1))) if d.any() else None,
+                fractured=int((~r.active_record[-1]).sum()),
+                fractured_ref=int((~ref.active_record[-1]).sum()))
+
+
+def parting(coords, conn, cfg, model, recs) -> dict:
+    """Why the two routes' fracture patterns part: the first step whose
+    active masks differ and the elements that differ there; at that step
+    (every earlier mask equal, so the stresses compare) each route's
+    |stress| / max_stress of those elements (above 1 fractures) beside the
+    converged one (float64 on the CPU, rtol 1e-12, cold, on the same mask),
+    and each route's largest stress error over the active elements as a
+    share of max_stress; the same ramp in float64 on the CPU (the port's
+    plain path: the hybrid, dense tail included) at the configuration's
+    rtol and at 1e-10, and each route's pattern against the latter; and
+    both card routes again at rtol 1e-7."""
+    from .fea.elements import element_strain
+    from .fea.ramp import _step_factors
+    a, b = recs["tree_cg"], recs["hybrid"]
+    s = against(a, b)["first_step"]
+    el = np.nonzero(a.active_record[s] != b.active_record[s])[0]
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    m64 = build_model(coords, conn, cfg64, "cpu")
+    mask = torch.as_tensor(a.active_record[s - 1] if s else
+                           np.ones(m64.n_elems, bool))
+    dy_top, dy_bot = _step_factors(cfg, s)
+    res = solve_displacement(
+        m64, mask, dy_top, dy_bot, torch.zeros((m64.n_nodes, 3),
+                                               dtype=torch.float64),
+        dataclasses.replace(cfg64, rtol=1e-12, warm_start=False),
+        refresh_anchored(m64, mask))
+    stress = np.where(mask.numpy(), cfg.e_mod * element_strain(
+        res.x, m64.conn, m64.geom).numpy(), 0.0)
+    out = dict(first_step=s, elements=el.tolist(),
+               converged_solve=dict(iters=res.iters,
+                                    converged=bool(res.converged)),
+               stress_ratio_converged=(np.abs(stress[el])
+                                       / cfg.max_stress).tolist())
+    for name, r in (("tree_cg", a), ("hybrid", b)):
+        out[f"stress_ratio_{name}"] = (
+            np.abs(r.stress_record[s, el]) / cfg.max_stress).tolist()
+        out[f"stress_error_{name}"] = float(
+            np.abs(r.stress_record[s] - stress).max() / cfg.max_stress)
+    ref = None
+    for rtol in (cfg.rtol, 1e-10):
+        t0 = time.perf_counter()
+        ref = run_ramp(coords, conn, dataclasses.replace(cfg64, rtol=rtol),
+                       model=m64)
+        out[f"float64_rtol_{rtol:g}"] = dict(
+            steps=int(ref.force_disp.shape[0]),
+            fractured=int((~ref.active_record[-1]).sum()),
+            iters=ref.cg_iters.tolist(), wall_s=time.perf_counter() - t0)
+    out["tree_cg_vs_converged"] = against(a, ref)
+    out["hybrid_vs_converged"] = against(b, ref)
+    tight = {}
+    out["rtol_1e-7"] = ramp_routes(
+        coords, conn, dataclasses.replace(cfg, rtol=1e-7), model, tight)
+    for name, r in tight.items():
+        out["rtol_1e-7"][f"{name}_vs_converged"] = against(r, ref)
+    return out
+
+
+def grown_ramps(preset: str) -> dict:
+    """P6 on a grown network (``--grown``): the preset grown through
+    ``run_growth`` on the card, its network built with
+    ``hybrid_fea_config()``, and ``ramp_routes`` at the configuration's pull
+    and, where nothing fractures there, at twice the displacement of the
+    first fracture."""
+    from .config import GROWTH_PRESETS
+    from .fea.elements import element_strain
+    from .fea.tree_factor import n_pcr_levels
+    from .growth import run_growth, state_mesh
+    gcfg = GROWTH_PRESETS[preset]
+    t0 = time.perf_counter()
+    st, _, hist = run_growth(gcfg, device="cuda")
+    coords, conn = state_mesh(st)
+    cfg = hybrid_fea_config()
+    model = build_model(coords, conn, cfg, "cuda")
+    off = model.tree.meta.level_offsets
+    out = dict(preset=preset, steps=gcfg.t_steps,
+               segments=hist[-1]["segments"], nodes=model.n_nodes,
+               elements=model.n_elems, dof=model.n_dof,
+               level_slots=[b - a for a, b in zip(off, off[1:])],
+               hybrid_pcr_levels=n_pcr_levels(model.tree.meta),
+               tree_dense_tail=cfg.tree_dense_tail,
+               tree_kernel=model.tree_kernel,
+               kernel_bytes=tree_kernel_bytes(model),
+               grow_and_build_s=time.perf_counter() - t0)
+    out["ramp"] = ramp_routes(coords, conn, cfg, model)
+    if not any(r.get("fractured", 0) for r in out["ramp"].values()
+               if isinstance(r, dict)):
+        active = torch.ones(model.n_elems, dtype=torch.bool, device="cuda")
+        dy = cfg.displacement_max
+        x0 = torch.zeros((model.n_nodes, 3), dtype=model.dtype,
+                         device="cuda")
+        u = solve_displacement(model, active, dy, -dy, x0,
+                               dataclasses.replace(cfg, warm_start=False),
+                               refresh_anchored(model, active)).x
+        strain = float(element_strain(u, model.conn, model.geom).abs().max())
+        first = dy * cfg.max_strain / max(strain, 1e-300)
+        out.update(max_strain_at_pull=strain,
+                   first_fracture_displacement=first)
+        cfg2 = dataclasses.replace(cfg, displacement_max=2 * first)
+        recs = {}
+        twice = out["ramp_twice_first_fracture"] = ramp_routes(
+            coords, conn, cfg2, model, recs)
+        if twice.get("records", {}).get("active_differ"):
+            out["parting"] = parting(coords, conn, cfg2, model, recs)
     return out
 
 
@@ -329,9 +466,16 @@ def main(argv=None) -> int:
                     help="also ramp on K6 and on the hybrid and compare")
     ap.add_argument("--sweep", type=int, default=0, metavar="TRIALS",
                     help="run only the solver sweep, TRIALS trials a mesh")
+    ap.add_argument("--grown", nargs="+", default=None, metavar="PRESET",
+                    help="only P6: grow each preset, ramp it on K6 and on "
+                    "the hybrid")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_fea: needs a CUDA card")
+    if args.grown:
+        print(json.dumps(dict(card=card_line(), grown=[
+            grown_ramps(p) for p in args.grown])))
+        return 0
     if args.sweep:
         print(json.dumps(dict(card=card_line(), sweeps=[
             sweep_mesh(n, args.sweep) for n in args.nodes])))

@@ -14,11 +14,13 @@ import numpy as np
 import pytest
 import torch
 
-from mycelium_tpu_torch.config import GROWTH_PRESETS, FeaConfig
+from mycelium_tpu_torch.config import (GROWTH_PRESETS, FeaConfig,
+                                       hybrid_fea_config)
 from mycelium_tpu_torch.devices import moved
 from mycelium_tpu_torch.fea import build_model, solve_displacement
 from mycelium_tpu_torch.fea.chain import plan_active_masks_bool
 from mycelium_tpu_torch.fea.ramp import anchored_mask_host
+from mycelium_tpu_torch.fea.solve import compute_tree_factor
 from mycelium_tpu_torch.growth import (TorchDraws, growth_step, init_state,
                                        neighbors, run_growth, summarize)
 from mycelium_tpu_torch.fea.tree_factor import build_tree_kernel_tables
@@ -36,9 +38,11 @@ from mycelium_tpu_torch.kernels.tree_cg import (NEAR_WINDOW, STALL_WINDOW,
 from mycelium_tpu_torch.scenes import petri_dish
 # imported by its own name (pytest puts tests/ on sys.path): a machine
 # with an unrelated installed package named "tests" shadows tests.*
-from torch_support import (cuda_device, grip_for,  # noqa: F401
-                           level0, random_forest_mesh, rel_err,
-                           synthetic_mesh)
+from torch_support import (all_levels, cuda_device,  # noqa: F401
+                           emulate_anast_by_cell, fixed_order_sums,
+                           grip_for, level0,
+                           random_forest_mesh, rel_err, scan_args,
+                           synthetic_mesh, tie_state)
 
 
 def _chain_case(device, n_nodes=3000, frac=0.05):
@@ -133,6 +137,73 @@ def test_pcr_factor_matches_plain(cuda_device):  # noqa: F811
     # reg-floored blocks amplify any rounding difference: 1e-4
     for a, b in zip(k, p):
         assert rel_err(a.cpu(), b.cpu()) <= 1e-4
+
+
+def _hybrid_case(device, frac=0.05):
+    """A hybrid system with 2 PCR levels (synthetic_mesh(8000), dense tail
+    64), so level 1's inputs carry level 0's Schur corrections and fill
+    edges; a fraction of the elements fractured and the islands pinned."""
+    coords, conn = synthetic_mesh(8000)
+    cfg = hybrid_fea_config(warm_start=False, grip_length=grip_for(coords),
+                            tree_dense_tail=64)
+    m = build_model(coords, conn, cfg, device)
+    rng = np.random.default_rng(4)
+    act = rng.random(m.n_elems) >= frac
+    anch = anchored_mask_host(np.asarray(conn), act,
+                              (m.top_nodes | m.bot_nodes).cpu().numpy())
+    free = m.free_nodes & torch.as_tensor(anch, device=device)
+    return m, cfg, torch.as_tensor(act, device=device), free
+
+
+def test_pcr_factor_launch_matches_cpu_plain(cuda_device):  # noqa: F811
+    """K2 bound to the hybrid model's levels (``PcrFactorLaunch``: one
+    launch a windowed level) on every level of a factorization against
+    its plain version on the CPU on copies of the same inputs: every
+    output equal (torch.equal; only the sign of a zero may differ)."""
+    m, cfg, act, free = _hybrid_case(cuda_device)
+    launch = m.pcr_launch
+    L = len(launch.windowed)
+    assert L >= 2 and all(launch.windowed)
+    levels = all_levels(m, act, free, preconditioner_reg(m, cfg))[:L]
+    reset_launch_counts()
+    for li, (D, B, fg, lg, steps) in enumerate(levels):
+        k = launch.factor(li, D, B)
+        p = pcr_factor_plain(D.cpu(), B.cpu(), fg.cpu(), lg.cpu(), steps)
+        torch.cuda.synchronize()
+        for a, b in zip(k, p):
+            assert torch.equal(a.cpu(), b)
+    assert launch_counts()["pcr_factor"] == L
+    # a whole hybrid factorization: one launch a level
+    reset_launch_counts()
+    compute_tree_factor(m, act, cfg, free & m.free_nodes)
+    torch.cuda.synchronize()
+    assert launch_counts()["pcr_factor"] == L
+
+
+def test_fixed_order_sums_bit_equal_on_card(cuda_device):  # noqa: F811
+    """P7: the chain diagonal's jump terms, the coarse matrix, the hybrid's
+    Schur corrections and its forward right-hand sides, and K2's outputs
+    on both PCR levels, twice on the card: bit-equal to each other and to
+    the CPU on copies of the same inputs (K2 there its plain version)."""
+    from mycelium_tpu_torch.fea.coarse import cluster_layout, n_basis
+    m, cfg, act, free = _hybrid_case(cuda_device)
+    ccfg = dataclasses.replace(cfg, precond="coarse", rtol=1e-5,
+                               max_iter=3000)
+    _, _, nbc, width = cluster_layout(m.n_nodes, ccfg)
+    plan = m.coarse_plans.get(nbc, width, n_basis(ccfg))
+    gen = np.random.default_rng(6)
+    rp = torch.as_tensor(gen.standard_normal((3, m.n_nodes)),
+                         dtype=torch.float32, device=cuda_device)
+    args = (act, free, plan, cfg.reg, preconditioner_reg(m, cfg), rp)
+    one = fixed_order_sums(m, *args)
+    two = fixed_order_sums(m, *args)
+    cpu = dataclasses.replace(moved(m, "cpu"), pcr_launch=None)
+    ref = fixed_order_sums(cpu, *moved(args, "cpu"))
+    torch.cuda.synchronize()
+    assert sum(n.startswith("K2 level") for n in ref) >= 8
+    for n in ref:
+        assert torch.equal(one[n], two[n]) and torch.equal(one[n].cpu(),
+                                                           ref[n]), n
 
 
 def test_pcr_apply_matches_plain(cuda_device):  # noqa: F811
@@ -230,9 +301,10 @@ def _grown_demo_plain_scan(device, steps):
 def _scan_args(st, cfg):
     g = neighbors.check_layout(cfg)
     grid, _ = neighbors.grid_insert_finalized(st.grid, st, cfg)
-    ov_slot, ov_start, ov_count, cell, _ = neighbors.tip_tables(st, cfg)
-    return (st.tip, cell, st.start, st.end, grid.ids, grid.geo, grid.count,
-            cfg.max_per_cell, ov_slot, ov_start, ov_count, g, st.capacity)
+    tb = neighbors.tip_tables(st, cfg)
+    return (st.tip, tb.scan_cell, st.start, st.end, grid.ids, grid.geo,
+            grid.count, cfg.max_per_cell, tb.ov_slot, tb.ov_start,
+            tb.ov_count, g, st.capacity, tb.tips)
 
 
 def test_anast_scan_matches_plain(cuda_device):  # noqa: F811
@@ -249,6 +321,24 @@ def test_anast_scan_matches_plain(cuda_device):  # noqa: F811
     assert int((k[2] < st.capacity).sum()) > 100
     for a, b in zip(k, p):
         assert torch.equal(a, b)
+
+
+def test_anast_scan_bit_equal_on_tie_state(cuda_device):  # noqa: F811
+    """K4 on the tie-heavy state (duplicated segments, tips at bitwise
+    equal distances from candidates in different cells, sources and
+    ranks): bit-equal to the plain version on the card and to the CPU
+    emulation of its order of work."""
+    cfg, st = tie_state(cuda_device)
+    args = scan_args(st, cfg)
+    before = launch_counts()["anast_scan"]
+    k = anast_scan(*args)
+    p = anast_scan_plain(*args)
+    e = emulate_anast_by_cell(args)
+    torch.cuda.synchronize()
+    assert launch_counts()["anast_scan"] == before + 1
+    assert int((k[2] < st.capacity).sum()) >= 100
+    for a, b, c in zip(k, p, e):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
 
 
 def test_growth_through_anast_scan_equals_plain(cuda_device):  # noqa: F811

@@ -18,7 +18,8 @@ from mycelium_tpu.fea import tree_jax as trj
 from mycelium_tpu_torch.kernels import (pcr_apply_plain, pcr_factor,
                                         pcr_factor_plain)
 from mycelium_tpu_torch.kernels.pcr import pcr_coeffs_plain
-from tests.torch_support import level0
+from tests.torch_support import (all_levels, emulate_pcr_windows, grip_for,
+                                 level0, random_forest_mesh, synthetic_mesh)
 from tests.torch_support import rel_err as _rel
 
 
@@ -96,3 +97,65 @@ def test_corner_solve_is_the_pcr_apply_of_unit_columns():
     ref = np.stack([np.asarray(X[i][:, j]) for i in range(3)
                     for j in range(6)])
     assert _rel(xc.numpy(), ref) < 1e-12
+
+
+def _hybrid_model(name):
+    from mycelium_tpu_torch.config import hybrid_fea_config
+    from mycelium_tpu_torch.fea.model import build_model
+    coords, conn = {"forest900": lambda: random_forest_mesh(900, 18, 4),
+                    "synthetic8000": lambda: synthetic_mesh(8000)}[name]()
+    cfg = hybrid_fea_config(grip_length=grip_for(coords), tree_dense_tail=64)
+    return build_model(coords, conn, cfg, "cpu"), cfg, conn
+
+
+def _levels(m, cfg, conn, frac):
+    from mycelium_tpu_torch.fea.ramp import anchored_mask_host
+    from mycelium_tpu_torch.fea.tree_solve import preconditioner_reg
+    rng = np.random.default_rng(2)
+    act = rng.random(m.n_elems) >= frac
+    grip = (m.top_nodes | m.bot_nodes).numpy()
+    anch = torch.as_tensor(anchored_mask_host(np.asarray(conn), act, grip))
+    return all_levels(m, torch.as_tensor(act), m.free_nodes & anch,
+                      preconditioner_reg(m, cfg))
+
+
+@pytest.mark.parametrize("frac", [0.0, 0.05])
+@pytest.mark.parametrize("name", ["forest900", "synthetic8000"])
+def test_k2_windows_equal_the_whole_level(name, frac):
+    """K2's bound launch cuts each hybrid PCR level into K6's path-aligned
+    windows: the plain factorization run window by window, with the corner
+    columns from the launch's per-slot flags, equals the whole level's
+    exactly (torch.equal: only the sign of a zero may differ); the launch's
+    own plain version (flags back to path ends) equals pcr_factor_plain."""
+    from mycelium_tpu_torch.fea.tree_factor import (n_pcr_levels,
+                                                    pcr_factor_launch)
+    m, cfg, conn = _hybrid_model(name)
+    launch = m.pcr_launch
+    L = n_pcr_levels(m.tree.meta)
+    assert launch.sizes == [m.tree.meta.level_offsets[i + 1]
+                            - m.tree.meta.level_offsets[i] for i in range(L)]
+    assert all(launch.windowed) and L >= 2
+    levels = _levels(m, cfg, conn, frac)
+    for li in range(L):
+        D, B, fg, lg, steps = levels[li]
+        whole = pcr_factor_plain(D, B, fg, lg, steps)
+        for a, b in zip(launch.plain(li, D, B), whole):
+            assert torch.equal(a, b)
+        for a, b in zip(emulate_pcr_windows(launch, li, D, B), whole):
+            assert torch.equal(a, b)
+    # a window shorter than a level's longest path: that level keeps the
+    # global rounds, the others are cut finer and still equal
+    small = pcr_factor_launch(m.tree, window=8)
+    po, fgh, lgh = (m.tree.meta.path_offsets, m.tree.first_gpos.numpy(),
+                    m.tree.last_gpos.numpy())
+    longest = [int((lgh[po[i]:po[i + 1]] - fgh[po[i]:po[i + 1]]).max()) + 1
+               for i in range(L)]
+    assert small.windowed == tuple(n <= 8 for n in longest)
+    assert not all(small.windowed)
+    for li in range(L):
+        D, B, fg, lg, steps = levels[li]
+        win = emulate_pcr_windows(small, li, D, B)
+        assert (win is None) == (not small.windowed[li])
+        if win is not None:
+            for a, b in zip(win, pcr_factor_plain(D, B, fg, lg, steps)):
+                assert torch.equal(a, b)

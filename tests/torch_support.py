@@ -1,8 +1,10 @@
 """Shared pieces of the PyTorch-port tests (tests/test_torch_*.py): the
 test meshes, the PCR level inputs, the replay of the JAX package's random
-draws, and the fixture that hands a CUDA device to the tests that need the
-card. Imports nothing of jax or the JAX package at module level, so the
-card's tests (test_torch_kernels.py) run where jax is not installed."""
+draws, the tie-heavy scan state and the fixed-order sums (which
+``chip_smoke.py`` holds to the CPU too), and the fixture that hands a CUDA
+device to the tests that need the card. Imports nothing of jax or the JAX
+package at module level, so the card's tests (test_torch_kernels.py) and
+``chip_smoke.py`` run where jax is not installed."""
 
 import contextlib
 
@@ -314,6 +316,123 @@ def emulate_chain_setup(launch, active, anchored, dy_top, dy_bot, x0, cfg):
                 s=sc, ainv=g)
 
 
+def tie_state(device="cpu", n_pairs=160, n_mirror=40, seed=5):
+    """The tie-heavy state of the anastomosis scan (K4), where many
+    candidates sit at bitwise-equal distances and only the visiting order
+    decides: ``n_pairs`` hyphae of two segments each (a finalized parent,
+    in the grid once the scan inserts the backlog, and an active tip
+    child, in the overlay), every point on a lattice of 2^-6 mm, so
+    distances come out exact and many are bitwise equal; about a third of
+    the parents are duplicated by another hypha's parent and a fifth of
+    the children by another's child, and the tips crowd a 1 mm square
+    (several to a corner cell). Then 2·``n_mirror`` hyphae more put a
+    segment one lattice step to either side of each of the first
+    ``n_mirror`` tips, a finalized parent on one side and a tip child on
+    the other: ties at the same d² whose projections differ, so the pick
+    shows in the snapped end. Returns (cfg, state)."""
+    from mycelium_tpu_torch.config import GrowthConfig
+    from mycelium_tpu_torch.growth.draws import TorchDraws
+    from mycelium_tpu_torch.growth.state import (ACTIVE, PASSIVE,
+                                                 ensure_grid, init_state)
+    cfg = GrowthConfig(max_segments=1024, max_hyphae=512, h0_per_point=2,
+                       inoculum_nx=2, inoculum_ny=2)
+    rng = np.random.default_rng(seed)
+    q = 2.0 ** -6
+    dirs = np.array([[1, 0], [0, 1], [-1, 0], [0, -1], [1, 1], [1, -1],
+                     [-1, 1], [-1, -1]], np.float64)
+    a = rng.integers(-32, 32, (n_pairs, 2)) * q
+    step = dirs[rng.integers(0, 8, n_pairs)] * 3 * q
+    dup = rng.random(n_pairs) < 0.35
+    src = rng.integers(0, n_pairs, n_pairs)
+    a[dup], step[dup] = a[src[dup]], step[src[dup]]
+    b = a + step
+    step2 = dirs[rng.integers(0, 8, n_pairs)] * 2 * q
+    c = b + step2
+    dupc = rng.random(n_pairs) < 0.2
+    b[dupc], c[dupc] = b[src[dupc]], c[src[dupc]]
+    tips = c[:n_mirror]
+    a, b, c = (np.concatenate([x, tips + np.array(s1) * q,
+                               tips + np.array(s2) * q])
+               for x, s1, s2 in ((a, (1, -1), (-1, -3)), (b, (1, 2), (-1, -1)),
+                                 (c, (1, 4), (-1, 2))))
+    st, _ = init_state(cfg, device=device,
+                       draws=TorchDraws(cfg.seed, device))
+    N, H = cfg.max_segments, cfg.max_hyphae
+    start = torch.zeros((N, 3))
+    end = torch.zeros((N, 3))
+    state = torch.zeros(N, dtype=torch.int8)
+    prev = torch.full((N,), -1, dtype=torch.int32)
+    hypha = torch.full((N,), -1, dtype=torch.int32)
+    P = len(a)
+    z = np.zeros((P, 1))
+    start[:P] = torch.as_tensor(np.hstack([a, z]), dtype=torch.float32)
+    end[:P] = torch.as_tensor(np.hstack([b, z]), dtype=torch.float32)
+    start[P:2 * P] = end[:P]
+    end[P:2 * P] = torch.as_tensor(np.hstack([c, z]), dtype=torch.float32)
+    state[:P], state[P:2 * P] = PASSIVE, ACTIVE
+    hypha[:P] = hypha[P:2 * P] = torch.arange(P, dtype=torch.int32)
+    prev[P:2 * P] = torch.arange(P, dtype=torch.int32)
+    tip = torch.full((H,), -1, dtype=torch.int32)
+    tip[:P] = torch.arange(P, 2 * P, dtype=torch.int32)
+    st = ensure_grid(st.replace(
+        grid=None, n_seg=2 * P, n_hyp=P, **{k: v.to(device) for k, v in dict(
+            start=start, end=end, state=state, prev=prev, hypha=hypha,
+            tip=tip).items()}), cfg)
+    return cfg, st
+
+
+class _KeepLevels:
+    """K2's bound launch, keeping a copy of each level's outputs."""
+
+    def __init__(self, launch):
+        self.launch, self.levels = launch, []
+
+    def factor(self, li, D, B):
+        out = self.launch.factor(li, D, B)
+        self.levels.append(tuple(t.clone() for t in out))
+        return out
+
+
+def fixed_order_sums(model, act, free, coarse_plan, reg, reg_pc, rp):
+    """The sums of the PyTorch routes whose terms collide on a target
+    (fault P7), on the device of ``model``'s tensors, as a dict of copies
+    by name: the chain diagonal's jump terms, the coarse Galerkin matrix
+    over ``coarse_plan``, the hybrid factorization's Schur corrections
+    (dacc) and its forward sweep's right-hand sides (racc: each level's K3
+    solution and the dense tail's right-hand side); and each PCR level's
+    K2 outputs (al, be, dinv, xc), whose inputs carry the earlier levels'
+    Schur corrections and fill edges. K2 goes through ``model.pcr_launch``;
+    a model without one (a CPU copy) gets a launch built on its device,
+    which runs the plain version there."""
+    from mycelium_tpu_torch.fea.chain import plan_active_masks_bool
+    from mycelium_tpu_torch.fea.coarse import coarse_matrix
+    from mycelium_tpu_torch.fea.tree_factor import (
+        TreeFactor, chain_diag, n_pcr_levels, pcr_factor_launch,
+        tree_factor_inputs, tree_factor_levels, tree_forward_sweep)
+    tree, fast, cplan = model.tree, model.tree_fast, model.chain
+    free_chain = free[cplan.perm]
+    cab, jab = plan_active_masks_bool(cplan, act)
+    out = {"chain_diag": chain_diag(
+        cplan, (cab & fast.chain_tree).to(model.dtype),
+        (jab & fast.jump_tree).to(model.dtype), free_chain, reg_pc),
+        "coarse_matrix": coarse_matrix(coarse_plan, cplan, act, free_chain,
+                                       reg, model.dtype)}
+    D_g, B_elem, katt = tree_factor_inputs(tree, fast, cplan, act, free,
+                                           free_chain, reg_pc, model.conn,
+                                           cab, jab)
+    keep = _KeepLevels(model.pcr_launch or pcr_factor_launch(tree))
+    al, be, dinv, att_b, _, out["dacc"] = tree_factor_levels(
+        tree, D_g, B_elem, katt, n_pcr_levels(tree.meta),
+        fast.meta.level_left_fill, keep)
+    for li, level in enumerate(keep.levels):
+        out.update({f"K2 level {li} {n}": t for n, t in
+                    zip(("al", "be", "dinv", "xc"), level)})
+    ys, out["racc tail"] = tree_forward_sweep(
+        tree, TreeFactor(alphas=al, betas=be, dinvs=dinv, att_b=att_b), rp)
+    out.update({f"racc level {i}": y for i, y in enumerate(ys)})
+    return {k: v.clone() for k, v in out.items()}
+
+
 class JaxDraws:
     """A draw source (mycelium_tpu_torch/growth/draws.py) that replays the
     JAX package's key chain, so the port sees the reference's numbers:
@@ -370,6 +489,112 @@ class JaxDraws:
             key, rnd, tan = self.wall_draws(key, H, dtype)
         self.key = key
         return StepDraws(*u, wall_rnd=rnd, wall_tan=tan)
+
+
+def emulate_pcr_windows(launch, li, D, B):
+    """K2's windowed launch on level ``li`` on the CPU: the plain
+    factorization of each of the launch's windows alone (its slices of D
+    and B, the corner columns from the launch's flags, the level's
+    rounds), put together; None for a level that keeps the global rounds.
+    The kernel reads R = B[s + 1] across a window's end, where a path
+    starts: that coupling must be zero."""
+    from mycelium_tpu_torch.kernels import pcr_factor_plain
+    start, lens, n = launch.windows[li]
+    if not n:
+        return None
+    steps, c = launch.steps[li], launch.corner[li].cpu()
+    S = D.shape[1]
+    out = [D.new_empty((steps, 9, S)), D.new_empty((steps, 9, S)),
+           D.new_empty((9, S)), D.new_empty((18, S))]
+    for ws, wl in zip(start.tolist(), lens.tolist()):
+        we = ws + wl
+        assert we == S or not bool(B[:, we].any())
+        cw = c[ws:we]
+        parts = pcr_factor_plain(D[:, ws:we], B[:, ws:we],
+                                 torch.nonzero(cw & 1).flatten(),
+                                 torch.nonzero(cw & 2).flatten(), steps)
+        for o, p in zip(out, parts):
+            o[..., ws:we] = p
+    return out
+
+
+def scan_args(st, cfg):
+    """K4's arguments for a state, as ``detect_anastomosis`` builds them
+    (the tip table by corner cell last)."""
+    from mycelium_tpu_torch.growth import neighbors
+    g = neighbors.check_layout(cfg)
+    grid, _ = neighbors.grid_insert_finalized(st.grid, st, cfg)
+    tb = neighbors.tip_tables(st, cfg)
+    return (st.tip, tb.scan_cell, st.start, st.end, grid.ids, grid.geo,
+            grid.count, cfg.max_per_cell, tb.ov_slot, tb.ov_start,
+            tb.ov_count, g, st.capacity, tb.tips)
+
+
+def emulate_anast_by_cell(args, ties=None):
+    """K4's order of work on the CPU: by corner cell, each cell's tips
+    against its window's candidates laid end to end in visiting order
+    ((offset, source, rank)), the winner the least (d², position), a NaN
+    read as +inf, kept only below +inf; rows outside the table (inf, 0,
+    N). The distances by the plain version's arithmetic. ``ties``, a dict,
+    counts the tips whose least d² more than one candidate attains, by
+    what the tied candidates differ in: "cell", "source", "rank" (same
+    cell and source)."""
+    from mycelium_tpu_torch.kernels.anast import (OFFS, _dist,
+                                                  _inv_sq_length)
+    (tip, cell, start, end, gids, ggeo, gcount, cap, ov_slot, ov_start,
+     ov_count, g, N, tips) = [x.cpu() if torch.is_tensor(x) else x
+                              for x in args]
+    order, tstart, tcount = (t.cpu() for t in tips)
+    H = tip.shape[0]
+    d2 = torch.full((H,), float("inf"))
+    tt = torch.zeros(H)
+    ids = torch.full((H,), N, dtype=torch.int32)
+    for m in torch.nonzero(tcount).flatten().tolist():
+        cx, cy = divmod(m, g)
+        cid, geo, run = [], [], []
+        for o, (dr, dc) in enumerate(OFFS):
+            x, y = cx + dr, cy + dc
+            if x < 0 or y < 0:
+                continue
+            c = x * g + y
+            e = c * cap + torch.arange(int(gcount[c]))
+            cid.append(gids[e].long())
+            geo.append(ggeo[e][:, :7])
+            k = int(ov_start[c]) + torch.arange(int(ov_count[c]))
+            oid = ov_slot[k].long()
+            sl = oid.clamp(max=N - 1)
+            oa = start[sl]
+            oab = end[sl] - oa
+            geo.append(torch.cat([oa, oab, _inv_sq_length(oab)[:, None]],
+                                 dim=1))
+            cid.append(oid)
+            run += [torch.full((len(e),), 2 * o), torch.full((len(k),),
+                                                             2 * o + 1)]
+        cid, geo, run = torch.cat(cid), torch.cat(geo), torch.cat(run)
+        hy = order[int(tstart[m]):int(tstart[m]) + int(tcount[m])].long()
+        slot = tip[hy].long()
+        D2, TT = _dist(end[slot][:, None, :], geo[None, :, 0:3],
+                       geo[None, :, 3:6], geo[None, :, 6])
+        ok = (cid[None, :] < N) & (cid[None, :] != slot[:, None]) \
+            & ~torch.isnan(D2)
+        D2 = torch.where(ok, D2, torch.full_like(D2, float("inf")))
+        if D2.shape[1] == 0:
+            continue
+        dmin = D2.amin(dim=1)
+        first = torch.argmax((D2 == dmin[:, None]).to(torch.uint8), dim=1)
+        keep = dmin < float("inf")
+        if ties is not None:
+            for i in torch.nonzero(keep).flatten().tolist():
+                r = run[D2[i] == dmin[i]]
+                if len(r) > 1:
+                    kind = ("cell" if len(torch.unique(r // 2)) > 1 else
+                            "source" if len(torch.unique(r)) > 1 else "rank")
+                    ties[kind] = ties.get(kind, 0) + 1
+        hk = hy[keep]
+        d2[hk] = dmin[keep]
+        tt[hk] = TT[keep, first[keep]]
+        ids[hk] = cid[first[keep]].to(torch.int32)
+    return d2, tt, ids
 
 
 @contextlib.contextmanager
