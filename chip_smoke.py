@@ -15,10 +15,17 @@ fails (non-zero exit) if any phase fails:
    over back-to-back calls: the larger of the device's time and the host's
    time to submit a call) and ``device_ms``, the kernels' own duration
    from ``torch.profiler``; K1 through its bound operator, K2 through the
-   model's bound launch (``PcrFactorLaunch``: a level cut into
+   model's bound launch (``PcrLaunch``: a level cut into
    path-aligned windows is one launch) held to its plain version on the
    CPU on copies of the same inputs (equal up to the sign of a zero), with
-   the unbound global-rounds form timed beside it;
+   the unbound global-rounds form timed beside it; K3 through the same
+   launch (``PcrLaunch``: one launch a PCR level and sweep, the level's
+   right-hand side and store fused in) on every PCR level of a
+   factorization, forward, the dense tail's right-hand side and backward,
+   twice, equal to its plain version on the CPU on copies of the same
+   inputs, its level-0 launches and the whole forest apply timed, and the
+   unbound halo form (K6's plain version's) within 1e-5 of plain and
+   timed beside it;
 4. compare K5 with its plain version on the CPU on copies of the same
    inputs, on the 22,125-DOF mesh 5% fractured: the set-up bit for bit
    (masks, start vector, block-Jacobi inverse, coarse matrix and inverse),
@@ -28,10 +35,11 @@ fails (non-zero exit) if any phase fails:
    Then fault P7's four sums (the chain diagonal's jump terms, the
    coarse matrix on the cluster layout of K5's sweep configuration, the
    hybrid's Schur corrections and forward right-hand sides), with every
-   PCR level's K2 outputs through the bound launch, on the same system:
-   twice on the card, bit-equal to each other and to the CPU; and the
+   PCR level's K2 outputs through the bound launch, and the dense tail's
+   matrix, on the same system: twice on the card, bit-equal to each other
+   and to the CPU; the dense tail's inverse the same twice; and the
    fixed-order sum kernel against its plain version, timed on the coarse
-   blocks;
+   blocks (and, in phase 6, on the 309k system's short segments);
 5. compare K6 with its plain version on the 22,125-DOF mesh, intact and 5%
    fractured with the islands pinned (the set-up phase's outputs against
    the plain set-up; one preconditioner apply on a random vector, the load
@@ -61,7 +69,9 @@ fails (non-zero exit) if any phase fails:
    through K6 (the configuration's coarse weight 0.25 is not read there)
    and the same solve on the hybrid with that weight, as a model that
    cannot run K6 takes it: K1-K3's launches are read here, K2's one a
-   PCR level a factorization;
+   PCR level a factorization; then one forest apply of that hybrid alone
+   must make 2 K3 launches a PCR level and at most one ordered_sum (its
+   device operations, and a factorization's, read in the traced tail);
 8. the sweep path, counts set to 0 before and read after: cg + coarse cold
    solves through K5 (median of 5 at 22,125 DOF with the float64 residual
    check, one at 309k DOF; in the traced tail, the device operations and
@@ -471,30 +481,108 @@ def compare_kernels(model, coords, conn, cfg, device, rng, size: str) -> list:
         f"{glob_ms:.4f} ms; plain {pms2:.4f} ms, bound {b2[0]:.5f} ms by "
         f"{b2[1]})")
 
-    # K3: same order of operations as the plain version; only the window
-    # edges differ, and they never reach a central slot: 1e-5 relative
+    # K3 bound (the hybrid's sweep, one launch a level and sweep on the
+    # path-aligned windows) on every PCR level of a factorization, forward
+    # and backward, against its plain version on the CPU on copies of the
+    # same inputs, twice: the same float32 operations in the same order,
+    # windows that need nothing outside them: 0 (torch.equal)
+    from mycelium_tpu_torch.fea.ramp import anchored_mask_host
+    from mycelium_tpu_torch.fea.solve import compute_tree_factor
+    support = shared_checks()
+    grip = (model.top_nodes | model.bot_nodes).cpu().numpy()
+    anch = torch.as_tensor(anchored_mask_host(np.asarray(conn), active_np,
+                                              grip), device=device)
+    factor = compute_tree_factor(model, active, cfg, anch)   # islands pinned
+    # its own generator: the later phases draw what they drew before
+    rp = torch.as_tensor(np.random.default_rng(8).standard_normal((3, n)),
+                         dtype=f32, device=device)
+    err3 = 0.0
+    for run_ in range(2):
+        pairs = support.bound_sweep_pairs(tree, launch, factor, rp)
+        sync(device)
+        bad = [k for k, (a, b) in pairs.items()
+               if not torch.equal(a.cpu(), b)]
+        err3 = max([err3] + [float((a.cpu().double() - b.double()).abs()
+                                   .max()) if b.numel() else 0.0
+                             for a, b in pairs.values()])
+        log(f"K3 bound sweep {size}, run {run_ + 1}: {len(launch.sizes)} "
+            f"PCR levels ({[w[2] for w in launch.windows]} windows), "
+            f"forward, the tail's right-hand side and backward against "
+            f"the plain version on the CPU: max_abs_err={err3:.3e}, equal: "
+            f"{not bad}")
+        if bad:
+            raise AssertionError(f"K3 {size}: the bound sweep disagrees "
+                                 f"with its plain version on the CPU: {bad}")
+    # the unbound form (a level's rounds alone, halo windows), K6's plain
+    # version's, against its plain version on the card: the same order of
+    # operations, the window edges never reach a central slot: 1e-5
     al, be, dinv, _ = kf
     r = torch.as_tensor(rng.standard_normal((3, S)), dtype=f32,
                         device=device)
     k3 = pcr_apply(al, be, dinv, r)
     p3 = pcr_apply_plain(al, be, dinv, r)
-    err3, rel3 = rel_err([k3], [p3])
-    log(f"K3 pcr_apply {size}: S={S} steps={steps} max_abs_err={err3:.3e} "
-        f"rel={rel3:.3e} (tol 1e-5)")
-    if not rel3 <= 1e-5:
-        raise AssertionError(f"K3 {size} disagrees: rel {rel3:.3e}")
-    ms3 = timed_ms(lambda: pcr_apply(al, be, dinv, r), device, 200)
+    herr, hrel = rel_err([k3], [p3])
+    log(f"K3 unbound halo form {size}: S={S} steps={steps} "
+        f"max_abs_err={herr:.3e} rel={hrel:.3e} (tol 1e-5)")
+    if not hrel <= 1e-5:
+        raise AssertionError(f"K3 halo form {size} disagrees: rel "
+                             f"{hrel:.3e}")
+    # level 0's launches alone, into one forward result (K1's u above is
+    # read again in the traced tail: not these); the launch takes CUDA
+    # tensors only, so a rehearsal on the CPU times the emulation
+    if device.type == "cuda":
+        u3, nv3 = launch.forward(factor, rp)
+
+        def fwd0():
+            launch.sweep_level(0, False, factor, rp, u3, nv3)
+
+        def bwd0():
+            launch.sweep_level(0, True, factor, u3, u3, u3)
+
+        def apply():
+            return launch.apply(factor, rp)
+    else:
+        def fwd0():
+            return support.emulate_pcr_sweep(launch, factor, rp)
+
+        bwd0 = apply = fwd0
+    ms3 = timed_ms(fwd0, device, 200)
+    bms3 = timed_ms(bwd0, device, 200)
+    apply_ms = timed_ms(apply, device, 100)
+    halo_ms = timed_ms(lambda: pcr_apply(al, be, dinv, r), device, 200)
     pms3 = timed_ms(lambda: pcr_apply_plain(al, be, dinv, r), device, 50)
+    # the rounds alone (the first cut's bound, kept so the row compares):
+    # the coefficients, dinv, r in and u out; per slot and round two 3x3
+    # block-vector products (36), a last one (15)
     b3 = bound(nbytes(al, be, dinv, r, k3), S * (steps * 36 + 15))
+    # the fused forward level: the same plus the CSR pointers, the path
+    # ends by slot, the windows, and at each path end its coupling read
+    # and its product written (level 0 has no incoming attachments)
+    P0 = meta.path_offsets[1] - meta.path_offsets[0]
+    n_win = launch.windows[0][2]
+    sb3 = bound(nbytes(al, be, dinv, r, k3) + S * (4 + 8) + n_win * 8
+                + 2 * P0 * (36 + 12), S * (steps * 36 + 15) + 2 * P0 * 15)
     rows.append(dict(name="pcr_apply", route="cuda",
                      source="mycelium_tpu_torch/kernels/csrc/pcr.cu",
                      replaces="mycelium_tpu/fea/pallas_factor.py:297",
                      max_abs_err=err3, ms=ms3, plain_ms=pms3,
-                     bound_ms=b3[0], bound_by=b3[1], library_ms=None))
-    defer_device_ms(f"K3 {size}", rows[-1],
-                    lambda: pcr_apply(al, be, dinv, r), 200)
-    log(f"K3 time {size} call {ms3:.4f} ms (plain {pms3:.4f} ms, bound "
-        f"{b3[0]:.5f} ms by {b3[1]})")
+                     bound_ms=b3[0], bound_by=b3[1], library_ms=None,
+                     sweep_bound_ms=sb3[0], backward_ms=bms3,
+                     apply_ms=apply_ms, halo_form_ms=halo_ms,
+                     halo_form_rel=hrel))
+    defer_device_ms(f"K3 {size} forward level 0", rows[-1], fwd0, 200)
+    defer_device_ms(f"K3 {size} backward level 0", rows[-1], bwd0, 200,
+                    "backward_device_ms", "backward_ms")
+    defer_device_ms(f"hybrid tree apply {size}", rows[-1], apply, 100,
+                    "apply_device_ms", "apply_ms")
+    defer_device_ms(f"K3 {size}, unbound halo form", rows[-1],
+                    lambda: pcr_apply(al, be, dinv, r), 200,
+                    "halo_form_device_ms", "halo_form_ms")
+    log(f"K3 time {size} forward level 0 call {ms3:.4f} ms, backward "
+        f"{bms3:.4f} ms, the whole tree apply {apply_ms:.4f} ms (unbound "
+        f"halo form {halo_ms:.4f} ms; plain rounds {pms3:.4f} ms; bound of "
+        f"the rounds {b3[0]:.6f} ms by {b3[1]}, of the fused level "
+        f"{sb3[0]:.6f} ms by {sb3[1]})")
     return rows
 
 
@@ -946,6 +1034,20 @@ def compare_fixed_order_sums(model, conn, cfg, device, rng, label: str,
     if bad or levels < min_levels:
         raise AssertionError(f"P7 {label}: not bit-equal twice and to the "
                              f"CPU: {bad}; {levels} PCR levels")
+    # the dense tail: its matrix is one of the sums above; its inverse
+    # (torch.linalg.inv) twice from two factorizations
+    from mycelium_tpu_torch.fea.solve import compute_tree_factor
+    hcfg = dataclasses.replace(cfg, precond="tree", tree_coarse_weight=0.0)
+    inv1 = compute_tree_factor(model, act, hcfg, anch).sinv.clone()
+    inv2 = compute_tree_factor(model, act, hcfg, anch).sinv
+    sync(device)
+    same = torch.equal(inv1, inv2)
+    log(f"dense tail {label}: {inv1.shape[0] // 3} slots, matrix bit-equal "
+        f"twice and to the CPU: {'dense tail matrix' in ref and not bad}, "
+        f"inverse bit-equal twice: {same}")
+    if "dense tail matrix" not in ref or not same:
+        raise AssertionError(f"dense tail {label}: no tail, or its inverse "
+                             "differs between two factorizations")
     return err, plan, act, free
 
 
@@ -961,13 +1063,13 @@ def time_ordered_sum(model, plan, act, free, cfg, device, rng,
         (int(plan.blk_ent.shape[0]), (3 * plan.nbas) ** 2)),
         dtype=torch.float64, device=device).T
     nblk = int(plan.blk_row.shape[0])
-    k = ordered_sum(terms, plan.blk_ptr, None, nblk)
+    k = ordered_sum(terms, plan.blk_ptr, None, nblk, long_segments=True)
     p = ordered_sum_plain(terms.cpu(), plan.blk_ptr.cpu(), None, nblk)
     if not torch.equal(k.cpu(), p):
         raise AssertionError("ordered_sum disagrees with its plain version "
                              "on the CPU")
-    ms = timed_ms(lambda: ordered_sum(terms, plan.blk_ptr, None, nblk),
-                  device, 50)
+    ms = timed_ms(lambda: ordered_sum(terms, plan.blk_ptr, None, nblk,
+                                      long_segments=True), device, 50)
     pms = timed_ms(lambda: ordered_sum_plain(terms, plan.blk_ptr, None,
                                              nblk), device, 20)
     lib = timed_ms(lambda: coarse_matrix(plan, model.chain, act,
@@ -987,8 +1089,95 @@ def time_ordered_sum(model, plan, act, free, cfg, device, rng,
                max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b[0],
                bound_by=b[1], library_ms=None, coarse_matrix_ms=lib)
     defer_device_ms("ordered_sum", row, lambda: ordered_sum(
-        terms, plan.blk_ptr, None, nblk), 50)
+        terms, plan.blk_ptr, None, nblk, long_segments=True), 50)
     return row
+
+
+def time_ordered_sum_short(model, row: dict, device) -> None:
+    """The fixed-order sum on the hybrid's short segments at ``model``'s
+    shapes (the Schur corrections ``dacc``: the attachment CSR by junction
+    slot, 9 components, 0-3 terms a slot), against its plain version on
+    the CPU, timed into ``row`` beside the coarse blocks' numbers."""
+    import torch
+    from mycelium_tpu_torch.kernels.ordered_sum import (ordered_sum,
+                                                        ordered_sum_plain)
+    tree = model.tree
+    S, P = tree.n_slots, tree.n_paths
+    vals = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        (2 * P, 9)), dtype=torch.float32, device=device).T
+    ptr, ent = tree.att_ptr, tree.att_ent
+
+    def call():
+        return ordered_sum(vals, ptr, ent, S)
+
+    k = call()
+    p = ordered_sum_plain(vals.cpu(), ptr.cpu(), ent.cpu(), S)
+    same = torch.equal(k.cpu(), p)
+    ms = timed_ms(call, device, 100)
+    pms = timed_ms(lambda: ordered_sum_plain(vals, ptr, ent, S), device, 20)
+    # the terms at the CSR's entries, the pointers and entries, the sums
+    b = bound(ent.numel() * (9 * 4 + 4) + nbytes(ptr) + 9 * S * 4,
+              ent.numel() * 9)
+    log(f"ordered_sum short segments ({S} slots, {ent.numel()} terms, 9 "
+        f"components): equal to plain on the CPU {same}; call {ms:.4f} ms "
+        f"(plain {pms:.4f} ms, bound {b[0]:.6f} ms by {b[1]})")
+    if not same:
+        raise AssertionError("ordered_sum disagrees with its plain version "
+                             "on the CPU on the short segments")
+    row.update(short_ms=ms, short_plain_ms=pms, short_bound_ms=b[0])
+    defer_device_ms("ordered_sum short segments", row, call, 100,
+                    "short_device_ms", "short_ms")
+
+
+def hybrid_apply_check(model, cfg, device) -> dict:
+    """One apply of the hybrid's forest preconditioner (``model`` as a
+    model that cannot run K6 takes it; coarse weight 0, so the apply is
+    the forest's alone) on a random residual: 2 K3 launches a PCR level
+    and at most one ordered_sum, or the run fails. Its device operations,
+    and a factorization's, are read in the traced tail."""
+    import torch
+    from mycelium_tpu_torch.fea.solve import (chain_preconditioner,
+                                              compute_tree_factor)
+    from mycelium_tpu_torch.kernels import launch_counts, reset_launch_counts
+    cfg = dataclasses.replace(cfg, tree_coarse_weight=0.0)
+    act = torch.ones(model.n_elems, dtype=torch.bool, device=device)
+    pc = chain_preconditioner(model, act, cfg, model.free_nodes)
+    r = torch.as_tensor(np.random.default_rng(10).standard_normal(
+        (3, model.n_nodes)), dtype=model.dtype, device=device)
+    pc(r)
+    sync(device)
+    reset_launch_counts()
+    pc(r)
+    sync(device)
+    counts = launch_counts()
+    L = len(model.pcr_launch.sizes)
+    log(f"hybrid forest apply ({model.n_dof} DOF, {L} PCR levels): "
+        f"launches {counts}")
+    if device.type == "cuda" and (counts["pcr_apply"] != 2 * L
+                                  or counts["ordered_sum"] > 1):
+        raise AssertionError(f"hybrid tree apply: {counts['pcr_apply']} K3 "
+                             f"launches for {L} PCR levels, "
+                             f"{counts['ordered_sum']} ordered_sum")
+    out = dict(k3_launches=counts["pcr_apply"],
+               ordered_sum_launches=counts["ordered_sum"])
+
+    def ops(device):
+        if device.type != "cuda":
+            return
+        from mycelium_tpu_torch.profile_fea import profile
+        for name, fn, n in (("apply", lambda: pc(r), 20), ("factor", lambda:
+                            compute_tree_factor(model, act, cfg), 5)):
+            prof = profile(fn, n, 1.0, None)
+            out[f"{name}_device_ops"] = prof["device_ops_per_solve"]
+            out[f"{name}_device_busy_ms"] = prof["device_busy_ms"]
+        log(f"hybrid forest apply {model.n_dof} DOF: "
+            f"{out['apply_device_ops']:.1f} device operations "
+            f"({out['apply_device_busy_ms']:.4f} ms busy); its "
+            f"factorization {out['factor_device_ops']:.1f} "
+            f"({out['factor_device_busy_ms']:.4f} ms busy)")
+
+    defer(ops)
+    return out
 
 
 def compare_chain_cg(model, conn, cfg, device, rng, barrier_us) -> dict:
@@ -1665,6 +1854,7 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     row7["max_abs_err"] = max(row7["max_abs_err"], compare_fixed_order_sums(
         model_b, conn_b, k5_config(grip_length=grip_b), device, rng, label_b,
         big_pcr_levels)[0])
+    time_ordered_sum_short(model_b, row7, device)
     log(f"P7 fixed-order sums phase, {label_b}, "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -1731,6 +1921,10 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
                                   or not all(k2.windowed)):
         raise AssertionError("K2: not one launch a windowed level per "
                              "factorization")
+    # K3: a hybrid tree apply is 2 launches a PCR level and at most one
+    # ordered_sum (read apart from the path's counts)
+    hyb_apply = hybrid_apply_check(
+        dataclasses.replace(model_b, tree_kernel=False), cfg_b, device)
 
     # the sweep path
     t0 = time.perf_counter()
@@ -1795,7 +1989,8 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
                 ramp_steps_22k=n_rec,
                 ramp_fractured_22k=fractured, solve_ms_309k=ms309,
                 iters_309k=it309, hybrid_ms_309k=hyb309,
-                hybrid_iters_309k=hyb_it309, sweep=sweep, growth=growth,
+                hybrid_iters_309k=hyb_it309, hybrid_apply_309k=hyb_apply,
+                sweep=sweep, growth=growth,
                 coupled=pipe)
 
 

@@ -19,7 +19,7 @@ from .fea.chain import ChainPlan, jump_csr
 from .fea.elements import ElementGeometry
 from .fea.model import DTYPES, FeaModel, with_kernels
 from .fea.tree_factor import (FastFactorData, FastMeta, TreeFactor,
-                              TreeMeta, TreePlan, with_attachment_csr)
+                              TreeMeta, TreePlan, with_host_lists)
 from .growth.neighbors import SegGrid, grid_dims
 from .growth.state import DTYPES as GROWTH_DTYPES
 from .growth.state import GrowthState
@@ -96,7 +96,7 @@ def model_from_jax(arrays: dict, cfg, device) -> FeaModel:
         k_scale=float(a["tree.meta.k_scale"]),
         n_pcr=int(a["tree.meta.n_pcr"]))
     flags = ("tree_edge", "left_fill_flip", "att_flip", "has_fill")
-    tree = with_attachment_csr(TreePlan(meta=meta, **{
+    tree = with_host_lists(TreePlan(meta=meta, **{
         k: (b(a[f"tree.{k}"]) if k in flags else
             f(a[f"tree.{k}"]) if k == "k3" else i(a[f"tree.{k}"]))
         for k in _TREE_FIELDS}))

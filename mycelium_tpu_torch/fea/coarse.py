@@ -239,7 +239,7 @@ def coarse_matrix(plan: CoarsePlan, cplan, active, free_chain, reg: float,
                     terms[:, 3 * fa + kc, 3 * fb + kc2] = (wr[fa] * wc[fb]) * v
     nblk = plan.blk_row.shape[0]
     sums = ordered_sum(terms.reshape(-1, d * d).T, plan.blk_ptr, None,
-                       nblk).T.reshape(nblk, d, d)
+                       nblk, long_segments=True).T.reshape(nblk, d, d)
     nc = plan.nc
     fk = torch.arange(d, device=dev)
     base = (fk // 3) * (3 * nbc) + (fk % 3) * nbc

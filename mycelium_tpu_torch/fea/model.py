@@ -28,7 +28,7 @@ from .elements import ElementGeometry, element_forces, element_geometry_host
 from .tree import build_tree_schedule, element_k3
 from .tree_factor import (FastFactorData, TreeKernelTables, TreePlan,
                           build_fast_factor_data, build_tree_kernel_tables,
-                          build_tree_plan, pcr_factor_launch)
+                          build_tree_plan, build_pcr_launch)
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -66,9 +66,9 @@ class FeaModel:
     # it allocates its scratch and buffers at the model's first cg + coarse
     # solve
     chain_launch: object | None = None
-    # K2 bound to the plan's PCR levels (kernels.PcrFactorLaunch): made with
-    # every model whose forest has levels, it allocates its buffers at the
-    # model's first factorization on the card (the hybrid route's)
+    # K2 and K3 bound to the plan's PCR levels (kernels.PcrLaunch): made
+    # with every model whose forest has levels, it allocates K2's buffers at
+    # the model's first factorization on the card (the hybrid route's)
     pcr_launch: object | None = None
 
     @property
@@ -211,7 +211,7 @@ def with_kernels(model: FeaModel) -> FeaModel:
                               tables, model.conn, model.top_nodes,
                               model.bot_nodes)
         model = replace(model, tree_tables=tables, tree_launch=launch,
-                        pcr_launch=pcr_factor_launch(model.tree))
+                        pcr_launch=build_pcr_launch(model.tree))
     fits = tree_kernel_fits(model)
     return replace(model, tree_kernel=fits,
                    tree_launch=launch if fits else None)

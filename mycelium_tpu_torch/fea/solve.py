@@ -344,7 +344,8 @@ def chain_preconditioner(model, active, cfg, free, tree_factor_val=None,
 
         def pc(r):
             z = r if factor is None else torch.cat(
-                [tree_apply_chain_planes(model.tree, factor, r), r[:, S:]],
+                [tree_apply_chain_planes(model.tree, factor, r,
+                                         model.pcr_launch), r[:, S:]],
                 dim=1)
             return z if coarse is None else z + weight * coarse.apply(r)
 

@@ -8,11 +8,13 @@ space; under the unified ordering (``model._unified_order``) slot s IS
 chain position s, so the factorization assembles its diagonal from chain
 shifts and the apply works on chain-ordered residual planes directly.
 Each level's block-tridiagonal solves run as parallel cyclic reduction:
-K2 (``kernels.pcr_factor``) factors a level, K3 (``kernels.pcr_apply``)
-applies it, on CUDA tensors; on CPU tensors the same wrappers run their
-plain versions (the counterparts of ``_pcr_coeffs``/``_pcr_apply``).
-The trailing levels whose slots fit ``tree_dense_tail`` are solved as one
-dense junction-Schur inverse (``torch.linalg.inv``, as the reference).
+K2 factors a level and K3 applies it, on CUDA tensors through the plan's
+bound launch (``kernels.PcrLaunch``, ``build_pcr_launch``: one K2 launch
+a level, one K3 launch a level and sweep); on CPU tensors the plain
+versions (the counterparts of ``_pcr_coeffs``/``_pcr_apply``). The
+trailing levels whose slots fit ``tree_dense_tail`` are solved as one
+dense junction-Schur inverse (``torch.linalg.inv``, as the reference),
+its matrix summed in one fixed order (``dense_tail_matrix``).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from ..kernels.build import TREE_CG_WINDOW
 from ..kernels.ordered_sum import ordered_sum
-from ..kernels.pcr import (PcrFactorLaunch, pcr_apply, pcr_factor,
+from ..kernels.pcr import (PcrLaunch, SweepTables, pcr_apply, pcr_factor,
                            transpose9)
 from .tree import KIND_ELEM, KIND_FILL, KIND_NONE, TreeSchedule
 
@@ -83,6 +85,15 @@ class TreePlan:
     # order (level, side, path) of a sequential index_add_ over the levels
     att_ptr: Optional[torch.Tensor] = None   # (S+1,) int32
     att_ent: Optional[torch.Tensor] = None   # (n_att,) int32
+    # the dense tail's matrix by entry (``dense_tail_list``): entry
+    # dense_pos[i] of the flat (3Sd, 3Sd) matrix is the sum of the terms
+    # dense_ent[dense_ptr[i]:dense_ptr[i+1]], in the order in which the
+    # sequential index_put_ of the reference's assembly adds them;
+    # dense_fill (P_pcr,) the PCR paths whose fill lands in the tail
+    dense_pos: Optional[torch.Tensor] = None  # (n_entries,) int64
+    dense_ptr: Optional[torch.Tensor] = None  # (n_entries+1,) int32
+    dense_ent: Optional[torch.Tensor] = None  # (n_terms,) int32
+    dense_fill: Optional[torch.Tensor] = None  # (P_pcr,) bool
 
     @property
     def n_slots(self) -> int:
@@ -140,14 +151,67 @@ def attachment_csr(tgt: np.ndarray, path_offsets, S: int):
     return ptr, ent[key]
 
 
-def with_attachment_csr(plan: "TreePlan") -> "TreePlan":
-    """``plan`` with its attachment CSR, built on the host once."""
-    ptr, ent = attachment_csr(plan.att_tgt.cpu().numpy(),
-                              plan.meta.path_offsets, plan.n_slots)
+def dense_tail_list(meta: TreeMeta, att_tgt: np.ndarray, has_fill,
+                    dense_i: np.ndarray, dense_j: np.ndarray, S: int):
+    """The dense tail's matrix as a contribution list, host arrays: (pos,
+    ptr, ent, fill). The terms of one factorization are, flat: the
+    diagonal blocks D + dacc (9, Sd) at c·Sd + i, the tail's element
+    couplings ke (Ed, 3, 3) at 9Sd + 9e + 3a + b and the fill couplings
+    of the PCR paths fb (P_pcr, 3, 3) at 9Sd + 9Ed + 9p + 3a + b. Each
+    entry pos (row·3Sd + col) receives ent[ptr[i]:ptr[i+1]] in the order
+    in which the reference's assembly (per (a, b): the diagonal, both
+    orientations of ke, both of fb; each by index) adds them. ``fill``:
+    the PCR paths with a fill whose two junctions lie in the tail (the
+    others add a zero, clamped into the tail as the reference does)."""
+    L = n_pcr_levels(meta)
+    t0, p_pcr = meta.level_offsets[L], meta.path_offsets[L]
+    Sd, Ed = S - t0, len(dense_i)
+    tgt = np.asarray(att_tgt, np.int64).reshape(-1, 2)[:p_pcr]
+    fill = (np.asarray(has_fill, bool)[:p_pcr]
+            & (tgt[:, 0] >= t0) & (tgt[:, 0] < S)
+            & (tgt[:, 1] >= t0) & (tgt[:, 1] < S))
+    if Sd <= 0:
+        z = np.zeros(0, np.int64)
+        return z, np.zeros(1, np.int64), z, fill
+    n = 3 * Sd
+    ar, e9 = np.arange(Sd), 9 * Sd + 9 * np.arange(Ed)
+    f9 = 9 * Sd + 9 * Ed + 9 * np.arange(p_pcr)
+    di, dj = np.asarray(dense_i, np.int64), np.asarray(dense_j, np.int64)
+    ti, tj = (np.clip(tgt[:, k] - t0, 0, Sd - 1) for k in (0, 1))
+    pos, term = [], []
+    for a in range(3):
+        for b in range(3):
+            calls = [(ar, ar, (3 * a + b) * Sd + ar),
+                     (di, dj, e9 + 3 * a + b), (dj, di, e9 + 3 * b + a)]
+            if p_pcr:
+                calls += [(ti, tj, f9 + 3 * a + b), (tj, ti, f9 + 3 * b + a)]
+            for r, c, t in calls:
+                pos.append((3 * r + a) * n + 3 * c + b)
+                term.append(t)
+    pos, term = np.concatenate(pos), np.concatenate(term)
+    order = np.argsort(pos, kind="stable")
+    upos, counts = np.unique(pos[order], return_counts=True)
+    return upos, np.concatenate([[0], np.cumsum(counts)]), term[order], fill
+
+
+def with_host_lists(plan: "TreePlan") -> "TreePlan":
+    """``plan`` with its attachment CSR and its dense tail's contribution
+    list, built on the host once."""
+    def host(t):
+        return t.cpu().numpy()
+    S = plan.n_slots
+    ptr, ent = attachment_csr(host(plan.att_tgt), plan.meta.path_offsets, S)
+    pos, dptr, dent, fill = dense_tail_list(
+        plan.meta, host(plan.att_tgt), host(plan.has_fill),
+        host(plan.dense_i), host(plan.dense_j), S)
     dev = plan.att_tgt.device
-    return replace(plan, att_ptr=torch.as_tensor(ptr.astype(np.int32),
-                                                 device=dev),
-                   att_ent=torch.as_tensor(ent.astype(np.int32), device=dev))
+
+    def i32(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    return replace(plan, att_ptr=i32(ptr), att_ent=i32(ent),
+                   dense_pos=torch.as_tensor(pos, device=dev),
+                   dense_ptr=i32(dptr), dense_ent=i32(dent),
+                   dense_fill=torch.as_tensor(fill, device=dev))
 
 
 def build_tree_plan(schedule: TreeSchedule, k3: np.ndarray, dtype, device,
@@ -230,7 +294,7 @@ def build_tree_plan(schedule: TreeSchedule, k3: np.ndarray, dtype, device,
     k3_t = torch.as_tensor(k3_np, dtype=dtype, device=device)
     empty = torch.zeros((0,), dtype=torch.int64, device=device)
     if not schedule.levels:   # fully gripped: nothing to eliminate
-        return with_attachment_csr(TreePlan(
+        return with_host_lists(TreePlan(
             meta=TreeMeta(level_offsets=(0,), path_offsets=(0,),
                           level_steps=(), k_scale=k_scale, n_pcr=0),
             tree_edge=tree_edge, k3=k3_t, slots=empty, left_elem=empty,
@@ -251,7 +315,7 @@ def build_tree_plan(schedule: TreeSchedule, k3: np.ndarray, dtype, device,
     sa = node_to_slot[conn_np[te, 0]]
     sb = node_to_slot[conn_np[te, 1]]
     both = (sa >= t0) & (sb >= t0)
-    return with_attachment_csr(TreePlan(
+    return with_host_lists(TreePlan(
         meta=TreeMeta(level_offsets=tuple(lv_off),
                       path_offsets=tuple(pa_off),
                       level_steps=tuple(steps), k_scale=k_scale,
@@ -382,41 +446,33 @@ def chain_tree_diag(plan: TreePlan, fast: FastFactorData, cplan,
                       reg)
 
 
-def _dense_tail_factor(plan: TreePlan, D_tail, dacc_tail, ke, fill_B):
-    """Dense inverse of the tail levels' junction-Schur system, assembled
-    in the flat (3Sd, 3Sd) layout. D_tail/dacc_tail (9, Sd); ke (Ed,3,3);
-    fill_B (P+1, 9)."""
+def dense_tail_matrix(plan: TreePlan, D_tail, dacc_tail, ke, fill_B):
+    """The tail levels' junction-Schur matrix in the flat (3Sd, 3Sd)
+    layout. D_tail/dacc_tail (9, Sd); ke (Ed, 3, 3); fill_B (P+1, 9).
+    Each entry is the sum of its terms in the plan's contribution list
+    (``dense_tail_list``), one after another on every device
+    (``kernels.ordered_sum``): the bits of the reference's sequential
+    ``index_put_`` assembly on the CPU, and the same on the card."""
     meta = plan.meta
-    S_tot = plan.n_slots
-    t0 = meta.level_offsets[n_pcr_levels(meta)]
-    Sd = S_tot - t0
-    M = D_tail.new_zeros((3 * Sd, 3 * Sd))
-    ar = torch.arange(Sd, device=M.device)
-    p_pcr = meta.path_offsets[n_pcr_levels(meta)]
+    L = n_pcr_levels(meta)
+    Sd = plan.n_slots - meta.level_offsets[L]
+    p_pcr = meta.path_offsets[L]
+    terms = [(D_tail + dacc_tail).reshape(-1), ke.reshape(-1)]
     if p_pcr:
-        tgt = plan.att_tgt[:p_pcr]
-        both = (plan.has_fill[:p_pcr]
-                & (tgt[:, 0] >= t0) & (tgt[:, 0] < S_tot)
-                & (tgt[:, 1] >= t0) & (tgt[:, 1] < S_tot))
-        fb = fill_B[:p_pcr].reshape(-1, 3, 3) * both[:, None, None]
-        ti = (tgt[:, 0] - t0).clamp(0, Sd - 1)
-        tj = (tgt[:, 1] - t0).clamp(0, Sd - 1)
-    di, dj = plan.dense_i, plan.dense_j
-    for a in range(3):
-        for b in range(3):
-            M.index_put_((3 * ar + a, 3 * ar + b),
-                         D_tail[3 * a + b] + dacc_tail[3 * a + b],
-                         accumulate=True)
-            M.index_put_((3 * di + a, 3 * dj + b), ke[:, a, b],
-                         accumulate=True)
-            M.index_put_((3 * dj + a, 3 * di + b), ke[:, b, a],
-                         accumulate=True)
-            if p_pcr:
-                M.index_put_((3 * ti + a, 3 * tj + b), fb[:, a, b],
-                             accumulate=True)
-                M.index_put_((3 * tj + a, 3 * ti + b), fb[:, b, a],
-                             accumulate=True)
-    return torch.linalg.inv(M)
+        terms.append((fill_B[:p_pcr] * plan.dense_fill[:, None]).reshape(-1))
+    n = plan.dense_pos.shape[0]
+    sums = ordered_sum(torch.cat(terms)[None], plan.dense_ptr,
+                       plan.dense_ent, n)
+    M = D_tail.new_zeros(9 * Sd * Sd)
+    M[plan.dense_pos] = sums[0]
+    return M.view(3 * Sd, 3 * Sd)
+
+
+def _dense_tail_factor(plan: TreePlan, D_tail, dacc_tail, ke, fill_B):
+    """Dense inverse of the tail levels' junction-Schur system
+    (``dense_tail_matrix``)."""
+    return torch.linalg.inv(dense_tail_matrix(plan, D_tail, dacc_tail, ke,
+                                              fill_B))
 
 
 def left_couplings(plan: TreePlan, fast: FastFactorData, active,
@@ -474,7 +530,7 @@ def tree_factor_levels(plan: TreePlan, D_g, B_elem, katt, n_levels: int,
     ``tree_factor_inputs``: every level goes through K2, which returns the
     level's coefficients and its 6-column corner solve together: on CUDA
     tensors the plan's bound launch (``launch``, a
-    ``kernels.PcrFactorLaunch``: one launch a windowed level) or, without
+    ``kernels.PcrLaunch``: one launch a windowed level) or, without
     one, the unbound ``kernels.pcr_factor``; on CPU tensors the plain
     version. Each junction slot's Schur corrections add in the order
     (level, side, path) of the plan's attachment CSR, on every device
@@ -541,7 +597,7 @@ def tree_factor_fast(plan: TreePlan, fast: FastFactorData, cplan,
                      launch=None) -> TreeFactor:
     """The numeric factorization under the unified ordering: the first
     meta.n_pcr levels by PCR (through K2's bound ``launch`` on the card,
-    ``pcr_factor_launch``), the rest as one dense junction inverse."""
+    ``build_pcr_launch``), the rest as one dense junction inverse."""
     meta = plan.meta
     S_tot = plan.n_slots
     D_g, B_elem, katt = tree_factor_inputs(
@@ -592,18 +648,26 @@ def tree_forward_sweep(plan: TreePlan, factor: TreeFactor, rp):
     return ys, rhs(meta.level_offsets[L], S_tot)
 
 
-def tree_apply_chain_planes(plan: TreePlan, factor: TreeFactor, rp):
-    """z = K_tree^{-1} r on chain-ordered (3, >= S_tot) residual planes;
-    returns the (3, S_tot) slot part (callers append the grip rows)."""
+def tree_tail_solve(factor: TreeFactor, r_tail):
+    """The dense tail's solution (3, Sd) of its right-hand side."""
+    if r_tail.shape[1] == 0:
+        return r_tail
+    return (factor.sinv @ r_tail.T.reshape(-1)).reshape(-1, 3).T
+
+
+def tree_backward_sweep(plan: TreePlan, factor: TreeFactor, ys, u_tail):
+    """The backward half of ``tree_apply_chain_planes``: per PCR level from
+    the last, u = y - T_l^{-1} z_l, where z_l at a path's first and last
+    slot is the transposed attachment coupling times the junction's
+    value (side 0, then side 1); ``u_tail`` (3, S - t0) the dense tail's
+    solution. Returns the (3, S_tot) slot part."""
     meta = plan.meta
     L = n_pcr_levels(meta)
     S_tot = plan.n_slots
     t0 = meta.level_offsets[L]
-    ys, r_tail = tree_forward_sweep(plan, factor, rp)
-    u_all = rp.new_zeros((3, S_tot + 1))
+    u_all = u_tail.new_zeros((3, S_tot + 1))
     if S_tot > t0:
-        u_all[:, t0:S_tot] = (factor.sinv @ r_tail.T.reshape(-1)) \
-            .reshape(-1, 3).T
+        u_all[:, t0:S_tot] = u_tail
     for li in range(L - 1, -1, -1):
         s0, s1 = meta.level_offsets[li], meta.level_offsets[li + 1]
         p0, p1 = meta.path_offsets[li], meta.path_offsets[li + 1]
@@ -613,13 +677,30 @@ def tree_apply_chain_planes(plan: TreePlan, factor: TreeFactor, rp):
         tgt = plan.att_tgt[p0:p1]
         z0 = _mtv(ab[:, 0], u_all[:, tgt[:, 0]].T)
         z1 = _mtv(ab[:, 1], u_all[:, tgt[:, 1]].T)
-        z = rp.new_zeros((3, s1 - s0))
+        z = u_tail.new_zeros((3, s1 - s0))
         z.index_add_(1, fg, z0.T)
         z.index_add_(1, lg, z1.T)
         corr = pcr_apply(factor.alphas[li], factor.betas[li],
                          factor.dinvs[li], z)
         u_all[:, s0:s1] = ys[li] - corr
     return u_all[:, :S_tot]
+
+
+def tree_apply_chain_planes(plan: TreePlan, factor: TreeFactor, rp,
+                            launch: Optional[PcrLaunch] = None):
+    """z = K_tree^{-1} r on chain-ordered (3, >= S_tot) residual planes;
+    returns the (3, S_tot) slot part (callers append the grip rows). On
+    CUDA tensors with the plan's bound launch (``launch``,
+    ``build_pcr_launch``) K3's fused sweeps, 2 launches a PCR level;
+    otherwise the plain version, level by level (``tree_forward_sweep``,
+    the dense tail, ``tree_backward_sweep``), whose levels go through the
+    unbound ``kernels.pcr_apply``: its plain version on the CPU, K3's
+    halo form on the card (K6's plain version)."""
+    if launch is not None and rp.device.type == "cuda":
+        return launch.apply(factor, rp)
+    ys, r_tail = tree_forward_sweep(plan, factor, rp)
+    return tree_backward_sweep(plan, factor, ys,
+                               tree_tail_solve(factor, r_tail))
 
 
 # ---------------------------------------------------------------------------
@@ -706,29 +787,55 @@ def path_windows(fg, lg, lo, po, window: int):
             np.asarray(starts, np.int64), np.asarray(lens, np.int64))
 
 
-def pcr_factor_launch(plan: TreePlan,
-                      window: int = TREE_WINDOW) -> PcrFactorLaunch:
-    """K2 bound to the plan's PCR levels (``kernels.PcrFactorLaunch``):
+def build_pcr_launch(plan: TreePlan, window: int = TREE_WINDOW) -> PcrLaunch:
+    """K2 and K3 bound to the plan's PCR levels (``kernels.PcrLaunch``):
     per level its corner flags and K6's path-aligned windows, where the
-    level has them (``window`` is lowered by tests only)."""
+    level has them (``window`` is lowered by tests only), and the sweep's
+    tables (``kernels.pcr.SweepTables``)."""
     meta = plan.meta
     L = n_pcr_levels(meta)
-    lo = np.asarray(meta.level_offsets, np.int64)
-    po = np.asarray(meta.path_offsets, np.int64)
+    S = plan.n_slots
+    lo = np.asarray(meta.level_offsets, np.int64)[:L + 1]
+    po = np.asarray(meta.path_offsets, np.int64)[:L + 1]
     fg, lg = plan.first_gpos.cpu().numpy(), plan.last_gpos.cpu().numpy()
-    windowed, woff, wstart, wlen = path_windows(fg, lg, lo[:L + 1],
-                                                po[:L + 1], window)
+    windowed, woff, wstart, wlen = path_windows(fg, lg, lo, po, window)
     levels = []
     for li in range(L):
-        S = int(lo[li + 1] - lo[li])
-        corner = np.zeros(S, np.int32)
+        sl = int(lo[li + 1] - lo[li])
+        corner = np.zeros(sl, np.int32)
         corner[fg[po[li]:po[li + 1]] - lo[li]] |= 1
         corner[lg[po[li]:po[li + 1]] - lo[li]] |= 2
         w = slice(woff[li], woff[li + 1])
-        levels.append((S, meta.level_steps[li], corner,
+        levels.append((sl, meta.level_steps[li], corner,
                        (wstart[w] - lo[li], wlen[w]) if windowed[li]
                        else None))
-    return PcrFactorLaunch(levels, plan.slots.device)
+    # the sweep: the path ends by PCR slot, the attachments by junction
+    t0, P = int(lo[L]), int(po[L])
+    first_path = np.full(t0, -1, np.int64)
+    last_path = np.full(t0, -1, np.int64)
+    first_path[fg[:P]] = np.arange(P)
+    last_path[lg[:P]] = np.arange(P)
+    ptr = plan.att_ptr.cpu().numpy().astype(np.int64)
+    ent = plan.att_ent.cpu().numpy().astype(np.int64)
+    tgt = plan.att_tgt[:P].cpu().numpy().reshape(-1)
+    slot = np.repeat(np.arange(S), np.diff(ptr))
+    from_pcr = (ent >> 1) < P
+    tail = (slot >= t0) & from_pcr
+    tail_ptr = np.concatenate([[0], np.cumsum(np.bincount(
+        slot[tail] - t0, minlength=S - t0))])
+    slot_level = np.repeat(np.arange(L), np.diff(lo))
+    path_level = np.repeat(np.arange(L), np.diff(po))
+    at_pcr = slot < t0
+    ordered = bool(
+        np.all(from_pcr[at_pcr])
+        and np.all(path_level[ent[at_pcr] >> 1] < slot_level[slot[at_pcr]])
+        and np.all((tgt >= S) | (tgt >= lo[1:][np.repeat(path_level, 2)]))
+        and len(np.unique(fg[:P])) == P and len(np.unique(lg[:P])) == P)
+    return PcrLaunch(levels, SweepTables(
+        level_offsets=tuple(lo), path_offsets=tuple(po), n_slots=S,
+        first_path=first_path, last_path=last_path, att_ptr=ptr,
+        att_ent=ent, att_tgt=tgt, tail_ptr=tail_ptr,
+        tail_ent=ent[tail], ordered=ordered), plan.slots.device)
 
 
 def build_tree_kernel_tables(plan: TreePlan, conn,

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
-version: K1 ``chain_matvec``, K2 ``pcr_factor`` (``PcrFactorLaunch``), K3
-``pcr_apply``, K4 ``anast_scan``, K5 ``chain_cg`` (``ChainCgLaunch``), K6
+version: K1 ``chain_matvec``, K2 ``pcr_factor`` and K3 ``pcr_apply`` (both
+bound in ``PcrLaunch``), K4 ``anast_scan``, K5 ``chain_cg`` (``ChainCgLaunch``), K6
 ``tree_cg`` (``TreeCgLaunch``), and ``ordered_sum``, the fixed-order
 segment sum of the PyTorch routes (it replaces no TPU kernel).
 
@@ -12,12 +12,12 @@ from .build import launch_counts, reset_launch_counts
 from .chain_cg import ChainCgLaunch, chain_cg_plain, chain_cg_setup_plain
 from .chain_matvec import ChainOperator, chain_matvec, chain_matvec_plain
 from .ordered_sum import ordered_sum, ordered_sum_plain
-from .pcr import (PcrFactorLaunch, pcr_apply, pcr_apply_plain, pcr_factor,
+from .pcr import (PcrLaunch, pcr_apply, pcr_apply_plain, pcr_factor,
                   pcr_factor_plain)
 from .tree_cg import TreeCgLaunch, tree_cg_plain, tree_cg_setup_plain
 
 __all__ = ["ChainOperator", "chain_matvec", "chain_matvec_plain", "pcr_factor",
-           "pcr_factor_plain", "PcrFactorLaunch", "pcr_apply",
+           "pcr_factor_plain", "PcrLaunch", "pcr_apply",
            "pcr_apply_plain", "ordered_sum", "ordered_sum_plain",
            "anast_scan", "anast_scan_plain", "ChainCgLaunch",
            "chain_cg_plain", "chain_cg_setup_plain",

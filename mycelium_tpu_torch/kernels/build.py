@@ -66,12 +66,17 @@ _SIGNATURES = {
     # al, be, dinv, r, u, S, steps, stream
     "pcr_apply_f32": [_P] * 5 + [_I64, ctypes.c_int, _P],
     "pcr_apply_max_steps": [],
+    # backward, al, be, dinv, win_start, win_len, n_win, att_ptr, att_ent,
+    # first_path, last_path, att_tgt, ab, rp, rs, u, us, nv, s0, S, S_tot,
+    # steps, stream
+    "pcr_sweep_f32": [ctypes.c_int] + [_P] * 5 + [ctypes.c_int] + [_P] * 7
+    + [_I64, _P, _I64, _P, _I64, _I64, _I64, ctypes.c_int, _P],
     # vals, vals' strides (k, term), ptr, ent, shift, init, init's strides
-    # (k, segment), out, n, K, stream
+    # (k, segment), out, n, K, long_segments, stream
     "ordered_sum_f32": [_P, _I64, _I64, _P, _P, ctypes.c_int, _P, _I64,
-                        _I64, _P, _I64, ctypes.c_int, _P],
+                        _I64, _P, _I64, ctypes.c_int, ctypes.c_int, _P],
     "ordered_sum_f64": [_P, _I64, _I64, _P, _P, ctypes.c_int, _P, _I64,
-                        _I64, _P, _I64, ctypes.c_int, _P],
+                        _I64, _P, _I64, ctypes.c_int, ctypes.c_int, _P],
     # tip_slot, tip_cell, tip_order, tip_start, tip_count, start, end,
     # gids, ggeo, gcount, ov_slot, ov_start, ov_count, d2, tt, id, H, cap,
     # g, n_slots, stream
@@ -206,8 +211,9 @@ def check(rc: int, name: str) -> None:
 
 
 def stream_handle(t) -> int:
-    import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream's handle of CUDA tensor ``t``'s device
+    (``raw_stream``: no ``torch.cuda.Stream`` object a launch)."""
+    return raw_stream(t.device.index)
 
 
 def raw_stream(device_index: int) -> int:

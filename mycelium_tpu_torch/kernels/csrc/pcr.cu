@@ -8,8 +8,10 @@
 //      corner planes (unit right-hand sides at every path's first and last
 //      slot) ride along as r -= a·r[i-s] + b·r[i+s]; finally
 //      dinv = inv(D) and the corner solution x = dinv·r.
-//   K3 pcr_apply_f32 <- _apply_kernel / _apply_kernel_chunked
-//      (pcr_apply_planes_kernel): u = T^-1 r from K2's coefficients.
+//   K3 pcr_sweep_f32 <- _apply_kernel / _apply_kernel_chunked
+//      (pcr_apply_planes_kernel): u = T^-1 r from K2's coefficients, fused
+//      with the hybrid's forward or backward sweep over one level;
+//      pcr_apply_f32 the same apply alone (unbound).
 //
 // Layout: a 3x3 block batch is 9 contiguous (S,) component planes in
 // row-major component order (00, 01, 02, 10, ...); a 3-vector batch is 3
@@ -27,7 +29,8 @@
 // operations.
 //
 // The per-slot bodies live in pcr.cuh, which the whole-solve kernel K6
-// (tree_cg.cu) shares.
+// (tree_cg.cu) shares: the rounds, the backward sweep's right-hand side and
+// the block-vector products of the stores.
 //
 // Design. K2 takes a level cut into K6's path-aligned windows
 // (fea/tree_factor.py::path_windows: runs of whole paths of at most
@@ -43,18 +46,49 @@
 // one launch per round over all S slots with the state in global ping-pong
 // buffers, each thread recomputing the two neighbour inverses it needs
 // instead of storing dinv. The bound launch (kernels/pcr.py::
-// PcrFactorLaunch) holds the windows, flags, outputs and work space, so a
+// PcrLaunch) holds the windows, flags, outputs and work space, so a
 // factorization allocates nothing and reads nothing back.
 //
-// K3 runs twice per PCR level in every CG iteration and streams 18
-// coefficient planes a round plus 9 for dinv: ~(72·steps + 36) bytes a
-// slot, e.g. 540 B at steps = 7. It is one launch per level: each
-// block owns a chunk of CHUNK central slots, loads the residual over the
-// chunk plus a halo of 2^steps - 1 slots on both sides into shared memory,
-// runs every round there (coefficients stream from global memory, each
-// read once per block), and writes only its central slots. The halo is the
-// PCR dependence distance, so central results are exact; the redundant
-// halo work is 2·(2^steps - 1)/CHUNK of the total (25% at steps = 7).
+// K3 runs twice per PCR level in every preconditioner apply of the hybrid
+// and streams 18 coefficient planes a round plus 9 for dinv: ~(72·steps +
+// 36) bytes a slot, e.g. 540 B at steps = 7; with the fused sweep's own
+// traffic (12 B of right-hand side in and 12 of solution out a slot, 12 a
+// path end's attachment product, written once and read once, and the
+// attachment couplings and tables) ~(72·steps + 96) B a slot.
+//
+// What held its first cut back was neither bytes nor operations. It took
+// ceil(S/1024) blocks (53 of 132 SMs at the 309k plan's largest level, 2
+// at 22k), each recomputing a halo of 2·(2^steps - 1) slots (25% at steps
+// = 7), each thread 4-5 slots deep behind 7 barriers; and around each
+// launch the hybrid ran ~20 PyTorch operations a level and sweep (the
+// right-hand side's ordered sum, the gathers of the path ends, the
+// attachment products, the writes into their buffer, the zeros and the
+// index_add_ of the backward right-hand side, the subtraction).
+//
+// Design (kernels/pcr.py::PcrLaunch, bound once per model): one launch a
+// level and sweep, on the same path-aligned windows as K2 (one block a
+// window, one slot a thread; PCR never couples two paths, so no halo). The
+// launch does the whole level of the sweep:
+//   forward (pcr_sweep_forward_kernel): a slot's right-hand side is the
+//     residual plus the negated attachment products of earlier levels'
+//     path ends that attach to it, added in the order of the plan's
+//     attachment CSR (level, side, path), the order of the plain version's
+//     ordered sum; the rounds run in shared memory (pcr.cuh's
+//     apply_rounds); the store writes y = dinv·v into the result and, at a
+//     path's first and last slot, that path end's product -(ab·y), which a
+//     later level's load (and the dense tail's right-hand side, one
+//     ordered sum) reads: each product is formed once, by its producer;
+//   backward (pcr_sweep_backward_kernel): a slot's right-hand side is
+//     ab^T·u[junction] of the paths that start or end at it (side 0, then
+//     side 1, the order of the plain version's two index_add_ into zeros);
+//     the store writes u = y - dinv·v in place of y.
+// A level with a path longer than the window keeps the halo form inside
+// the same kernels: chunks of kChunk central slots plus a halo of
+// 2^steps - 1 on both sides, the same fused load and store. The unbound
+// pcr_apply_f32 (a level's rounds alone, halo form) stays for K6's plain
+// version on the card and the unbound wrapper. Every term is the plain
+// version's, in its order, so the bound sweep equals the plain sweep on
+// the CPU bit for bit (up to the sign of a zero).
 //
 // Arithmetic order follows the plain PyTorch versions term by term, and
 // the library is built with -fmad=false, so the kernels round as the plain
@@ -178,9 +212,121 @@ __global__ void pcr_apply_kernel(const float* al, const float* be,
     if (pos >= S) break;
     float v0 = cur[w], v1 = cur[W + w], v2 = cur[2 * W + w];
     for (int q = 0; q < 3; ++q)
-      u[q * S + pos] = dinv[(3 * q) * S + pos] * v0 +
-                       dinv[(3 * q + 1) * S + pos] * v1 +
-                       dinv[(3 * q + 2) * S + pos] * v2;
+      u[q * S + pos] = pcr::dot3(dinv + 3 * q * S + pos, S, v0, v1, v2);
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// K3 bound: one level of the hybrid's forward or backward sweep
+// ---------------------------------------------------------------------------
+
+struct Sweep {
+  const float* al;           // (steps, 9, S) the level's coefficients
+  const float* be;
+  const float* dinv;         // (9, S)
+  const int* win_start;      // (n_win) level-local; null: the halo form
+  const int* win_len;
+  const int* att_ptr;        // (S + 1) the level's slots in the plan's CSR
+  const int* att_ent;        // entries 2·path + side
+  const int* first_path;     // (S) the path that starts at the slot, -1
+  const int* last_path;      // (S) the path that ends at it, -1
+  const int* att_tgt;        // (2P) junction slot, >= S_tot for none
+  const float* ab;           // (2P, 9) row-major attachment couplings
+  const float* rp;           // residual planes, row stride rs
+  float* u;                  // (3, S_tot) result planes, row stride us
+  float* nv;                 // (2P, 3) negated attachment products
+  long long rs, us, s0, S, S_tot;
+  int steps, halo;
+};
+
+// The block's window: level slots [base, base + W), of which it stores
+// [base + lo, base + hi)
+__device__ __forceinline__ void sweep_window(const Sweep& a, long long& base,
+                                             int& W, int& lo, int& hi) {
+  if (a.win_start) {
+    base = a.win_start[blockIdx.x];
+    W = a.win_len[blockIdx.x];
+    lo = 0;
+    hi = W;
+  } else {
+    base = (long long)blockIdx.x * kChunk - a.halo;
+    W = kChunk + 2 * a.halo;
+    lo = a.halo;
+    const long long end = a.S - base;
+    hi = (int)(end < a.halo + kChunk ? end : a.halo + kChunk);
+  }
+}
+
+// forward: v = r[s] + sum over the CSR's entries of the negated products
+__device__ __forceinline__ void forward_rhs(const Sweep& a, long long s,
+                                            float v[3]) {
+  const long long g = a.s0 + s;
+  for (int c = 0; c < 3; ++c) v[c] = a.rp[c * a.rs + g];
+  for (int e = a.att_ptr[s]; e < a.att_ptr[s + 1]; ++e) {
+    const float* m = a.nv + 3 * (long long)a.att_ent[e];
+    for (int c = 0; c < 3; ++c) v[c] = v[c] + m[c];
+  }
+}
+
+// forward: y = dinv·v into the result, and -(ab·y) of the path ends here
+__device__ __forceinline__ void forward_store(const Sweep& a, long long s,
+                                              float v0, float v1, float v2) {
+  const long long g = a.s0 + s;
+  float y[3];
+  for (int q = 0; q < 3; ++q) {
+    y[q] = pcr::dot3(a.dinv + 3 * q * a.S + s, a.S, v0, v1, v2);
+    a.u[q * a.us + g] = y[q];
+  }
+  const int ends[2] = {a.first_path[s], a.last_path[s]};
+  for (int side = 0; side < 2; ++side) {
+    if (ends[side] < 0) continue;
+    const long long ent = 2 * (long long)ends[side] + side;
+    const float* m = a.ab + 9 * ent;
+    for (int q = 0; q < 3; ++q)
+      a.nv[3 * ent + q] = -pcr::dot3(m + 3 * q, 1, y[0], y[1], y[2]);
+  }
+}
+
+// backward: u = y - dinv·v, y being what the forward sweep stored there
+__device__ __forceinline__ void backward_store(const Sweep& a, long long s,
+                                               float v0, float v1,
+                                               float v2) {
+  const long long g = a.s0 + s;
+  for (int q = 0; q < 3; ++q) {
+    const float o = pcr::dot3(a.dinv + 3 * q * a.S + s, a.S, v0, v1, v2);
+    a.u[q * a.us + g] = a.u[q * a.us + g] - o;
+  }
+}
+
+template <bool kBackward>
+__global__ void __launch_bounds__(kThreads) pcr_sweep_kernel(Sweep a) {
+  extern __shared__ float smem[];
+  long long base;
+  int W, lo, hi;
+  sweep_window(a, base, W, lo, hi);
+  float* buf0 = smem;
+  float* buf1 = smem + 3 * W;
+  for (int w = threadIdx.x; w < W; w += blockDim.x) {
+    const long long pos = base + w;
+    float v[3] = {0.0f, 0.0f, 0.0f};
+    if (pos >= 0 && pos < a.S) {
+      if (kBackward)
+        pcr::backward_rhs(a.first_path[pos], a.last_path[pos], a.att_tgt,
+                          a.ab, a.u, a.us, a.S_tot, v);
+      else
+        forward_rhs(a, pos, v);
+    }
+    for (int c = 0; c < 3; ++c) buf0[c * W + w] = v[c];
+  }
+  __syncthreads();
+  const float* cur = pcr::apply_rounds(buf0, buf1, W, base, a.S, a.steps,
+                                       a.al, a.be, a.S);
+  for (int w = lo + threadIdx.x; w < hi; w += blockDim.x) {
+    if (kBackward)
+      backward_store(a, base + w, cur[w], cur[W + w], cur[2 * W + w]);
+    else
+      forward_store(a, base + w, cur[w], cur[W + w], cur[2 * W + w]);
   }
 }
 
@@ -251,4 +397,56 @@ extern "C" int pcr_apply_max_steps() {
          48 * 1024)
     ++steps;
   return steps;
+}
+
+// One level of the hybrid's forward (backward = 0) or backward sweep. With
+// n_win > 0 windows (level-local first slots and lengths, each at most
+// kWindow whole paths) one block a window; else the halo form, chunks of
+// kChunk slots (steps at most pcr_apply_max_steps()). rp: residual planes
+// of row stride rs (read by the forward sweep at slots s0..s0+S); u: the
+// result planes of row stride us (the level writes its slots s0..s0+S);
+// nv (2P, 3): the forward sweep writes its paths' ends, reads earlier
+// levels'. att_ptr: the level's S + 1 pointers into att_ent.
+extern "C" int pcr_sweep_f32(int backward, const float* al, const float* be,
+                             const float* dinv, const int* win_start,
+                             const int* win_len, int n_win,
+                             const int* att_ptr, const int* att_ent,
+                             const int* first_path, const int* last_path,
+                             const int* att_tgt, const float* ab,
+                             const float* rp, long long rs, float* u,
+                             long long us, float* nv, long long s0,
+                             long long S, long long S_tot, int steps,
+                             cudaStream_t stream) {
+  if (S <= 0) return 0;
+  Sweep a;
+  a.al = al;
+  a.be = be;
+  a.dinv = dinv;
+  a.win_start = n_win > 0 ? win_start : nullptr;
+  a.win_len = n_win > 0 ? win_len : nullptr;
+  a.att_ptr = att_ptr;
+  a.att_ent = att_ent;
+  a.first_path = first_path;
+  a.last_path = last_path;
+  a.att_tgt = att_tgt;
+  a.ab = ab;
+  a.rp = rp;
+  a.u = u;
+  a.nv = nv;
+  a.rs = rs;
+  a.us = us;
+  a.s0 = s0;
+  a.S = S;
+  a.S_tot = S_tot;
+  a.steps = steps;
+  a.halo = (1 << steps) - 1;
+  const int W = n_win > 0 ? kWindow : kChunk + 2 * a.halo;
+  const size_t shmem = sizeof(float) * 6 * (size_t)W;
+  const unsigned blocks =
+      n_win > 0 ? (unsigned)n_win : (unsigned)((S + kChunk - 1) / kChunk);
+  if (backward)
+    pcr_sweep_kernel<true><<<blocks, kThreads, shmem, stream>>>(a);
+  else
+    pcr_sweep_kernel<false><<<blocks, kThreads, shmem, stream>>>(a);
+  return (int)cudaGetLastError();
 }

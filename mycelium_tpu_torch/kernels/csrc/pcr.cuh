@@ -78,6 +78,41 @@ __device__ __forceinline__ void transpose9(const float a[9], float o[9]) {
     for (int k = 0; k < 3; ++k) o[3 * i + k] = a[3 * k + i];
 }
 
+// m[0]·v0 + m[st]·v1 + m[2·st]·v2, in the plain versions' order: row q of a
+// 3x3 block whose components sit cs apart is dot3(m + 3·q·cs, cs, ...),
+// column k of a row-major block dot3(m + k, 3, ...)
+__device__ __forceinline__ float dot3(const float* m, long long st, float v0,
+                                      float v1, float v2) {
+  return m[0] * v0 + m[st] * v1 + m[2 * st] * v2;
+}
+
+// The backward sweep's right-hand side of one slot (K3 and K6), as the
+// hybrid's plain version forms it with two index_add_ into zeros:
+// v = 0 + ab^T·u[junction] of the path that starts at the slot (side 0),
+// then of the path that ends there (side 1). first, last: those paths (-1
+// for none); att_tgt: the junction slot of entry 2·path + side (n_u or
+// more: none, reads as zero); ab: (2P, 9) row-major couplings; u: 3 planes
+// of row stride us.
+__device__ __forceinline__ void backward_rhs(int first, int last,
+                                             const int* att_tgt,
+                                             const float* ab, const float* u,
+                                             long long us, long long n_u,
+                                             float v[3]) {
+  for (int c = 0; c < 3; ++c) v[c] = 0.0f;
+  const int ends[2] = {first, last};
+  for (int side = 0; side < 2; ++side) {
+    if (ends[side] < 0) continue;
+    const long long ent = 2 * (long long)ends[side] + side;
+    const long long tgt = att_tgt[ent];
+    float w[3] = {0.0f, 0.0f, 0.0f};
+    if (tgt < n_u)
+      for (int c = 0; c < 3; ++c) w[c] = u[c * us + tgt];
+    const float* m = ab + 9 * ent;
+    for (int k = 0; k < 3; ++k)
+      v[k] = v[k] + dot3(m + k, 3, w[0], w[1], w[2]);
+  }
+}
+
 // One PCR round at distance s for slot i: a = L·inv(D[i-s]),
 // b = R·inv(D[i+s]), D -= a·R[i-s] + b·L[i+s], L = -a·L[i-s],
 // R = -b·R[i+s], and the corner columns r -= a·r[i-s] + b·r[i+s]. Reads the

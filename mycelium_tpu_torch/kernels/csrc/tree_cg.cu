@@ -447,7 +447,8 @@ __device__ __forceinline__ double update_pos(const TreeArgs& a, long long q,
 
 // The right-hand side of slot s: forward, r minus the attachment products
 // of earlier levels' paths; backward, the transposed attachment couplings
-// times the junctions' values at a path's first and last slot
+// times the junctions' values at a path's first and last slot (pcr.cuh's,
+// which K3 shares)
 __device__ __forceinline__ void sweep_rhs(const TreeArgs& a, long long s,
                                           bool backward, float v[3]) {
   const long long n = a.n, S = a.S;
@@ -459,27 +460,13 @@ __device__ __forceinline__ void sweep_rhs(const TreeArgs& a, long long s,
       const float* m = a.ab + 9 * ent;
       const float y0 = a.y[end], y1 = a.y[S + end], y2 = a.y[2 * S + end];
       for (int q = 0; q < 3; ++q) {
-        const float pr = m[3 * q] * y0 + m[3 * q + 1] * y1 +
-                         m[3 * q + 2] * y2;
+        const float pr = pcr::dot3(m + 3 * q, 1, y0, y1, y2);
         v[q] = v[q] + (-pr);
       }
     }
   } else {
-    for (int c = 0; c < 3; ++c) v[c] = 0.0f;
-    const int ends[2] = {a.first_path[s], a.last_path[s]};
-    for (int side = 0; side < 2; ++side) {
-      if (ends[side] < 0) continue;
-      const long long ent = 2 * (long long)ends[side] + side;
-      const long long tgt = a.att_tgt[ent];
-      float u[3] = {0.0f, 0.0f, 0.0f};
-      if (tgt < S)
-        for (int c = 0; c < 3; ++c) u[c] = a.z[c * n + tgt];
-      const float* m = a.ab + 9 * ent;
-      for (int k = 0; k < 3; ++k) {
-        const float pr = m[k] * u[0] + m[3 + k] * u[1] + m[6 + k] * u[2];
-        v[k] = v[k] + pr;
-      }
-    }
+    pcr::backward_rhs(a.first_path[s], a.last_path[s], a.att_tgt, a.ab, a.z,
+                      n, S, v);
   }
 }
 
@@ -495,7 +482,7 @@ __device__ __forceinline__ double sweep_store(const TreeArgs& a, long long s,
   const long long n = a.n, S = a.S;
   double srz = 0.0;
   for (int q = 0; q < 3; ++q) {
-    const float o = d[3 * q] * v0 + d[3 * q + 1] * v1 + d[3 * q + 2] * v2;
+    const float o = pcr::dot3(d + 3 * q, 1, v0, v1, v2);
     if (!backward) a.y[q * S + s] = o;
     if (backward || last) {
       const float u = backward ? a.y[q * S + s] - o : o;

@@ -6,7 +6,10 @@ corrections and forward right-hand sides) go through here, so the card
 adds every target's terms in the order the CPU does and the two give the
 same bits. The kernel (``csrc/ordered_sum.cu``) is not one of the six TPU
 kernels: it takes the place of ``index_add_``, whose float atomics on the
-card add colliding terms in an order that changes from run to run.
+card add colliding terms in an order that changes from run to run. It
+gives a thread to a sum where segments are short and, where the caller
+says they are long (``long_segments``: the coarse blocks, tens of terms on
+average), a block to a segment, its terms staged in shared memory.
 
     out[:, s] = init[:, s] + vals[:, ent[j] >> shift] + ...
                 for j = ptr[s], ..., ptr[s + 1] - 1, one after another
@@ -39,10 +42,14 @@ def ordered_sum_plain(vals, ptr, ent, n: int, init=None, shift: int = 0):
     return out.index_add_(1, seg, vals.index_select(1, idx)).contiguous()
 
 
-def ordered_sum(vals, ptr, ent, n: int, init=None, shift: int = 0):
+def ordered_sum(vals, ptr, ent, n: int, init=None, shift: int = 0,
+                long_segments: bool = False):
     """The kernel for CUDA tensors (float32 or float64, int32 ``ptr`` and
     ``ent``, raises otherwise), the plain version for CPU tensors. Returns
-    a contiguous (K, n) tensor."""
+    a contiguous (K, n) tensor. ``long_segments`` chooses a block a
+    segment (for segments of tens of terms or more, as the coarse blocks')
+    over a thread a sum (a few terms, as the node jump, attachment and
+    dense-tail CSRs'); both add in the same order."""
     if vals.device.type == "cpu":
         return ordered_sum_plain(vals, ptr, ent, n, init, shift)
     K = vals.shape[0]
@@ -68,7 +75,8 @@ def ordered_sum(vals, ptr, ent, n: int, init=None, shift: int = 0):
         vals.data_ptr(), vals.stride(0), vals.stride(1), ptr.data_ptr(),
         ent.data_ptr() if ent is not None else None, int(shift),
         init.data_ptr() if init is not None else None, is_k, is_s,
-        out.data_ptr(), n, K, build.stream_handle(vals))
+        out.data_ptr(), n, K, int(long_segments),
+        build.stream_handle(vals))
     build.check(rc, fn)
     build.count_launch("ordered_sum")
     return out

@@ -13,22 +13,30 @@ zero (the TPU versions roll; both are exact because couplings vanish at
 path ends). The plain functions are the counterparts of
 ``mycelium_tpu/fea/tree_jax.py::_pcr_coeffs``/``_pcr_apply``.
 
-K2 is bound once per plan (``PcrFactorLaunch``, built with the model by
-``fea/tree_factor.py::pcr_factor_launch``): a level cut into path-aligned
-windows is one launch that allocates nothing and reads nothing back; a
-level with a longer path goes to the unbound ``pcr_factor``, which takes
-any level on the global rounds.
+K2 and K3 are bound once per plan (``PcrLaunch``, built with the model by
+``fea/tree_factor.py::build_pcr_launch``). K2: a level cut into
+path-aligned windows is one launch that allocates nothing and reads
+nothing back; a level with a longer path goes to the unbound
+``pcr_factor``, which takes any level on the global rounds. K3: the
+hybrid's whole forest apply, one launch a level and sweep that fuses the
+level's right-hand side and store with its rounds (``PcrLaunch.apply``, on
+CUDA tensors only: its plain version is ``fea/tree_factor.py``'s
+level-by-level sweep); the unbound ``pcr_apply`` runs a level's rounds
+alone.
 """
 
 from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from . import build
+from .ordered_sum import ordered_sum
 
 
 def transpose9(m):
@@ -192,37 +200,112 @@ def pcr_factor(D, B, fg, lg, steps: int):
     return _factor_global(D, B, corner_flags(fg, lg, S, D.device), steps)
 
 
-class PcrFactorLaunch:
-    """K2 bound to the PCR levels of one plan. Per level: its slots and
-    rounds, its corner flags, and, where its paths tile it and none is
-    longer than the kernel's window, its path-aligned windows (level-local
-    first slots and lengths). A windowed level is one launch into the
-    launch's own output buffers, so it allocates nothing and reads nothing
-    back; another level goes to the unbound global rounds
-    (``pcr_factor``'s, which allocate).
+class SweepTables(NamedTuple):
+    """What K3's bound sweep reads of the plan, host arrays (slots and
+    paths global, the PCR levels first): ``first_path``/``last_path``
+    (t0,) the path that starts / ends at each PCR slot (-1 for none);
+    ``att_ptr`` (n_slots + 1,) and ``att_ent`` the attachment CSR by
+    junction slot (entries 2·path + side); ``att_tgt`` (2·P_pcr,) each PCR
+    path end's junction slot (n_slots for none); ``tail_ptr`` (Sd + 1,)
+    and ``tail_ent`` the CSR's entries at the dense tail's slots that come
+    from PCR paths; ``ordered``: every attachment of a PCR path points from
+    its level to a later one, and no path starts or ends twice at a
+    slot."""
+    level_offsets: tuple
+    path_offsets: tuple
+    n_slots: int
+    first_path: np.ndarray
+    last_path: np.ndarray
+    att_ptr: np.ndarray
+    att_ent: np.ndarray
+    att_tgt: np.ndarray
+    tail_ptr: np.ndarray
+    tail_ent: np.ndarray
+    ordered: bool
 
-    Who owns the results: one set of buffers, a view per windowed level,
-    allocated at the first factorization on the card. A factorization
-    overwrites the previous one's coefficients of those levels: a caller
-    that keeps a factorization (the ramp keeps one at a time) copies it
-    before it factors again.
+
+class PcrLaunch:
+    """K2 and K3 bound to the PCR levels of one plan. Per level: its slots
+    and rounds, its corner flags, and, where its paths tile it and none is
+    longer than the kernels' window, its path-aligned windows (level-local
+    first slots and lengths); and the sweep's tables (``SweepTables``).
+
+    K2 (``factor``): a windowed level is one launch into the launch's own
+    output buffers, so it allocates nothing and reads nothing back; another
+    level goes to the unbound global rounds (``pcr_factor``'s, which
+    allocate). One set of buffers, a view per windowed level, allocated at
+    the first factorization on the card: a factorization overwrites the
+    previous one's coefficients of those levels, so a caller that keeps a
+    factorization (the ramp keeps one at a time) copies it before it
+    factors again.
+
+    K3 (``apply``, CUDA tensors only): the forest apply of a factorization
+    it is handed (never K2's buffers: the ramp keeps a copied
+    factorization), one launch a level and sweep, on the level's windows
+    or, where it has none, in the halo form; the dense tail's right-hand
+    side is one ``ordered_sum``. Each apply writes fresh buffers, so a
+    result stays valid while the caller holds it (bicgstab applies the
+    preconditioner twice an iteration). Its plain version is
+    ``fea/tree_factor.py``'s ``tree_forward_sweep``, ``tree_tail_solve``
+    and ``tree_backward_sweep``, to which ``tree_apply_chain_planes``
+    sends CPU tensors.
 
     ``levels``: per level (S, steps, corner (S,) int32 host array, windows
     (first slots, lengths) host arrays or None)."""
 
-    def __init__(self, levels, device):
+    def __init__(self, levels, sweep: SweepTables, device):
         self.device = torch.device(device)
         self.sizes = [int(S) for S, _, _, _ in levels]
         self.steps = [int(k) for _, k, _, _ in levels]
         self.windowed = tuple(w is not None and len(w[0]) > 0
                               for _, _, _, w in levels)
+
         def i32(a):
-            return torch.as_tensor(a, dtype=torch.int32, device=self.device)
+            return torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                   device=self.device)
         self.corner = [i32(c) for _, _, c, _ in levels]
         self.windows = [(i32(w[0]), i32(w[1]), len(w[0])) if ok
                         else (None, None, 0)
                         for (_, _, _, w), ok in zip(levels, self.windowed)]
+        self.level_offsets = tuple(int(x) for x in sweep.level_offsets)
+        self.path_offsets = tuple(int(x) for x in sweep.path_offsets)
+        self.n_slots = int(sweep.n_slots)
+        self.ordered = bool(sweep.ordered)
+        self.first_path, self.last_path, self.att_ptr, self.att_ent, \
+            self.att_tgt, self.tail_ptr, self.tail_ent = (
+                i32(a) for a in (sweep.first_path, sweep.last_path,
+                                 sweep.att_ptr, sweep.att_ent,
+                                 sweep.att_tgt, sweep.tail_ptr,
+                                 sweep.tail_ent))
+        L = len(self.sizes)
+        t0, P = self.level_offsets[L], self.path_offsets[L]
+        bad = [name for name, ok in (
+            ("level sizes", self.sizes == [
+                b - a for a, b in zip(self.level_offsets,
+                                      self.level_offsets[1:])]),
+            ("first_path", tuple(self.first_path.shape) == (t0,)),
+            ("last_path", tuple(self.last_path.shape) == (t0,)),
+            ("att_ptr", tuple(self.att_ptr.shape) == (self.n_slots + 1,)),
+            ("att_tgt", tuple(self.att_tgt.shape) == (2 * P,)),
+            ("tail_ptr", tuple(self.tail_ptr.shape)
+             == (self.n_slots - t0 + 1,)))
+            if not ok]
+        if bad:
+            raise ValueError(f"PcrLaunch: the sweep's tables do not fit the "
+                             f"levels: {bad}")
+        # per level the addresses K3 reads: its windows (None for the halo
+        # form), its slots' CSR pointers and path ends
+        self._level_ptrs = [
+            tuple(t.data_ptr() if t is not None else None for t in (
+                start, lens, self.att_ptr[s0:], self.first_path[s0:],
+                self.last_path[s0:]))
+            for (start, lens, _), s0 in zip(self.windows,
+                                           self.level_offsets)]
         self._out = None
+        index = self.device.index if self.device.index is not None \
+            else (torch.cuda.current_device()
+                  if self.device.type == "cuda" else 0)
+        self._stream = functools.partial(build.raw_stream, index)
 
     def _allocate(self) -> None:
         # per windowed level and slot: the round coefficients (2·steps·9),
@@ -238,9 +321,6 @@ class PcrFactorLaunch:
                 parts.append(flat[off:off + n].view(shape))
                 off += n
             self._out.append(tuple(parts))
-        index = self.device.index if self.device.index is not None \
-            else torch.cuda.current_device()
-        self._stream = functools.partial(build.raw_stream, index)
 
     def factor(self, li: int, D, B):
         """Level ``li``'s factorization (al, be, dinv, xc) from its (9, S)
@@ -269,6 +349,95 @@ class PcrFactorLaunch:
         fg = torch.nonzero(c & 1).flatten()
         lg = torch.nonzero(c & 2).flatten()
         return pcr_factor_plain(D, B, fg, lg, self.steps[li])
+
+    # K3: the hybrid's forest apply -------------------------------------
+
+    def _check_sweep(self, factor, rp) -> None:
+        L = len(self.sizes)
+        if not self.ordered:
+            raise ValueError("PcrLaunch: the plan's attachments do not all "
+                             "point from an earlier PCR level to a later "
+                             "one; the bound sweep cannot take it")
+        for li in range(L):
+            S, k = self.sizes[li], self.steps[li]
+            _check("pcr_sweep", "alphas", factor.alphas[li], (k, 9, S))
+            _check("pcr_sweep", "betas", factor.betas[li], (k, 9, S))
+            _check("pcr_sweep", "dinv", factor.dinvs[li], (9, S))
+            if not self.windowed[li] and k > apply_max_steps():
+                raise ValueError(f"pcr_sweep: level {li}'s {k} rounds "
+                                 "exceed the halo window "
+                                 f"({apply_max_steps()})")
+        _check("pcr_sweep", "att_b", factor.att_b,
+               (self.path_offsets[L], 2, 3, 3))
+        if rp.device != factor.att_b.device or rp.dtype != torch.float32 \
+                or rp.dim() != 2 or rp.shape[0] != 3 \
+                or rp.shape[1] < self.n_slots or rp.stride(1) != 1:
+            raise ValueError(f"pcr_sweep: rp must be float32 (3, >= "
+                             f"{self.n_slots}) planes with unit column "
+                             f"stride on the factor's device, got "
+                             f"{rp.dtype} {tuple(rp.shape)} strides "
+                             f"{rp.stride()} on {rp.device}")
+
+    def sweep_level(self, li: int, backward: bool, factor, rp, u,
+                    nv) -> None:
+        """One K3 launch on CUDA tensors, which the callers (``forward``,
+        ``backward``) check: level ``li`` of the forward sweep (reads rp
+        and the earlier levels' products in nv, writes the level's y into
+        u and its path ends' products into nv) or of the backward sweep
+        (reads u at the junctions, writes u = y - T^{-1} z on the
+        level)."""
+        s0, s1 = self.level_offsets[li], self.level_offsets[li + 1]
+        n_win = self.windows[li][2]
+        start, lens, ptr, first, last = self._level_ptrs[li]
+        rc = build.library().pcr_sweep_f32(
+            int(backward), factor.alphas[li].data_ptr(),
+            factor.betas[li].data_ptr(), factor.dinvs[li].data_ptr(), start,
+            lens, n_win, ptr, self.att_ent.data_ptr(), first, last,
+            self.att_tgt.data_ptr(), factor.att_b.data_ptr(), rp.data_ptr(),
+            rp.stride(0), u.data_ptr(), u.stride(0), nv.data_ptr(), s0,
+            s1 - s0, self.n_slots, self.steps[li], self._stream())
+        build.check(rc, "pcr_sweep_f32")
+        build.count_launch("pcr_apply")
+
+    def forward(self, factor, rp):
+        """The forward sweep on CUDA tensors: (u, nv), u (3, n_slots) with
+        each PCR level's y = T_l^{-1} r_l on its slots (the tail's slots
+        unwritten), nv (2·P_pcr, 3) the negated attachment products of the
+        PCR paths' ends. One launch a level."""
+        self._check_sweep(factor, rp)
+        L = len(self.sizes)
+        u = rp.new_empty((3, self.n_slots))
+        nv = rp.new_empty((2 * self.path_offsets[L], 3))
+        for li in range(L):
+            self.sweep_level(li, False, factor, rp, u, nv)
+        return u, nv
+
+    def tail_rhs(self, nv, rp):
+        """The dense tail's right-hand side (3, Sd): rp on its slots plus
+        the PCR paths' products that attach there, in the CSR's order
+        (one ``ordered_sum``)."""
+        t0 = self.level_offsets[len(self.sizes)]
+        return ordered_sum(nv.T, self.tail_ptr, self.tail_ent,
+                           self.n_slots - t0, init=rp[:, t0:self.n_slots])
+
+    def backward(self, factor, u) -> None:
+        """The backward sweep in place on ``forward``'s u, whose tail
+        slots hold the dense tail's solution: u = y - T_l^{-1} z_l, level
+        by level from the last. One launch a level."""
+        for li in range(len(self.sizes) - 1, -1, -1):
+            self.sweep_level(li, True, factor, u, u, u)
+
+    def apply(self, factor, rp):
+        """z = K_tree^{-1} r: the (3, n_slots) slot part, a fresh tensor.
+        CUDA float32 tensors only (raises otherwise): 2 K3 launches a PCR level, and with a dense tail one
+        ``ordered_sum`` and its product with ``factor.sinv``."""
+        u, nv = self.forward(factor, rp)
+        t0 = self.level_offsets[len(self.sizes)]
+        if self.n_slots > t0:
+            r_tail = self.tail_rhs(nv, rp)
+            u[:, t0:] = (factor.sinv @ r_tail.T.reshape(-1)).reshape(-1, 3).T
+        self.backward(factor, u)
+        return u
 
 
 @functools.cache

@@ -4,6 +4,7 @@
         [--reps 5] [--out DIR] [--ramp-routes]
     python -m mycelium_tpu_torch.profile_fea --grown large medium
     python -m mycelium_tpu_torch.profile_fea --sweep TRIALS
+    python -m mycelium_tpu_torch.profile_fea --hybrid-apply [--nodes ...]
 
 For each synthetic mesh (``meshes.synthetic_mesh``, the configuration of
 ``hybrid_fea_config``, coarse weight 0) it solves the full-displacement
@@ -59,6 +60,13 @@ trials, and per combination the median ms over the loaded steps and the
 trials, the route and the iterations. It needs nothing of the package
 beyond ``run_solver_sweep``'s arguments, so the same file can time an
 older checkout of the package (run it from that checkout's root).
+
+With ``--hybrid-apply`` it measures only the hybrid's tree preconditioner
+on each mesh (``hybrid_apply``): one forest apply and one factorization,
+their call ms and device operations, whether the dense tail's inverse
+has the same bits twice, and the hybrid's cold solve with its device
+operations and host syncs. Like ``--sweep`` it can time an older
+checkout.
 
 Prints one JSON object, the card's name and power limit in it; with
 ``--out`` it also writes the Chrome traces there. Needs a CUDA card.
@@ -456,6 +464,98 @@ def sweep_mesh(n_nodes: int, trials: int, device="cuda") -> dict:
                 wall_s=wall, combos=combos)
 
 
+def events_ms(fn, reps: int) -> float:
+    """Mean milliseconds a call of ``fn``, one CUDA event interval over
+    ``reps`` back-to-back calls after one warm-up call."""
+    fn()
+    _sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    _sync()
+    return start.elapsed_time(end) / reps
+
+
+def hybrid_apply(n_nodes: int, reps: int, device="cuda"):
+    """The hybrid's tree preconditioner on ``synthetic_mesh(n_nodes)`` in
+    chip_smoke.py's configuration (22k: ``hybrid_fea_config``; from 100k
+    nodes ``bench.py``'s 309k one: grips 0.3 of the extent, coarse weight
+    0.25), the system 5% fractured with its islands pinned: the
+    factorization (``compute_tree_factor``, coarse weight 0) and one
+    forest apply (``chain_preconditioner``'s tree PC, coarse weight 0) in
+    call ms (CUDA events); whether two factorizations give the same dense
+    tail inverse bit for bit; and the cold solve of the intact system on
+    the hybrid route (the configuration's coarse weight), median wall ms
+    of ``reps``. A generator, as ``profile_mesh``: the second step adds
+    from ``torch.profiler`` the device operations and busy ms of an apply,
+    of a factorization and of a solve, and the solve's host syncs. It uses
+    nothing of the package beyond these calls' arguments, so the same file
+    can time an older checkout."""
+    from .fea.ramp import anchored_mask_host
+    from .fea.solve import chain_preconditioner, compute_tree_factor
+    coords, conn = synthetic_mesh(n_nodes)
+    over = {}
+    if n_nodes >= 100000:
+        ext = float(coords[:, 1].max() - coords[:, 1].min())
+        over = dict(grip_length=0.3 * ext, tree_coarse_weight=0.25)
+    cfg = hybrid_fea_config(warm_start=False, **over)
+    cfg0 = dataclasses.replace(cfg, tree_coarse_weight=0.0)
+    model = dataclasses.replace(build_model(coords, conn, cfg, device),
+                                tree_kernel=False)
+    rng = np.random.default_rng(0)
+    grip = (model.top_nodes | model.bot_nodes).cpu().numpy()
+    act_np = rng.random(model.n_elems) >= 0.05
+    anch = torch.as_tensor(anchored_mask_host(np.asarray(conn), act_np,
+                                              grip), device=device)
+    act = torch.as_tensor(act_np, device=device)
+    free = model.free_nodes & anch
+    r = torch.as_tensor(rng.standard_normal((3, model.n_nodes)),
+                        dtype=model.dtype, device=device)
+
+    def factor():
+        return compute_tree_factor(model, act, cfg0, anch)
+
+    first = factor().sinv.clone()
+    tail_same = bool(torch.equal(first, factor().sinv))
+    pc = chain_preconditioner(model, act, cfg0, free, factor())
+    intact = torch.ones(model.n_elems, dtype=torch.bool, device=device)
+    anch_i = torch.as_tensor(anchored_mask_host(
+        np.asarray(conn), np.ones(model.n_elems, bool), grip), device=device)
+    x0 = torch.zeros((model.n_nodes, 3), dtype=model.dtype, device=device)
+    dy = cfg.displacement_max
+
+    def solve():
+        return solve_displacement(model, intact, dy, -dy, x0, cfg, anch_i)
+
+    off = model.tree.meta.level_offsets
+    out = dict(n_nodes=n_nodes, dof=model.n_dof,
+               levels=[b - a for a, b in zip(off, off[1:])],
+               pcr_levels=model.tree.meta.n_pcr,
+               coarse_weight=cfg.tree_coarse_weight,
+               dense_tail_inverse_same_bits_twice=tail_same,
+               apply_ms=events_ms(lambda: pc(r), 100),
+               factor_ms=events_ms(factor, 10))
+    reset_launch_counts()
+    pc(r)
+    _sync()
+    out["apply_launches"] = {k: v for k, v in launch_counts().items() if v}
+    out["solve_ms"], res = solve_ms(solve, reps)
+    out["solve_iters"] = res.iters
+    yield out
+    for name, fn, n in (("apply", lambda: pc(r), 20),
+                        ("factor", factor, 5), ("solve", solve, reps)):
+        prof = profile(fn, n, out[f"{name}_ms"], None)
+        out[f"{name}_device_ops"] = prof["device_ops_per_solve"]
+        out[f"{name}_device_busy_ms"] = prof["device_busy_ms"]
+        out[f"{name}_top_kernels"] = prof["top_kernels_ms_per_solve"][:4]
+    out["solve_host_syncs"], out["solve_sync_sites"] = syncs_per_solve(
+        solve, reps)
+    yield out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nodes", type=int, nargs="+",
@@ -466,6 +566,9 @@ def main(argv=None) -> int:
                     help="also ramp on K6 and on the hybrid and compare")
     ap.add_argument("--sweep", type=int, default=0, metavar="TRIALS",
                     help="run only the solver sweep, TRIALS trials a mesh")
+    ap.add_argument("--hybrid-apply", action="store_true",
+                    help="only the hybrid's tree preconditioner: apply, "
+                    "factorization, dense tail bits, cold solve")
     ap.add_argument("--grown", nargs="+", default=None, metavar="PRESET",
                     help="only P6: grow each preset, ramp it on K6 and on "
                     "the hybrid")
@@ -475,6 +578,13 @@ def main(argv=None) -> int:
     if args.grown:
         print(json.dumps(dict(card=card_line(), grown=[
             grown_ramps(p) for p in args.grown])))
+        return 0
+    if args.hybrid_apply:
+        runs = [hybrid_apply(n, args.reps) for n in args.nodes]
+        for run in runs:        # every wall reading before any trace
+            next(run)
+        print(json.dumps(dict(card=card_line(), reps=args.reps,
+                              hybrid=[next(run) for run in runs])))
         return 0
     if args.sweep:
         print(json.dumps(dict(card=card_line(), sweeps=[

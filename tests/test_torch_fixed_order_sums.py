@@ -122,9 +122,11 @@ def _old_chain_diag(cplan, m_c, m_j, free_chain, reg):
     return torch.stack(planes)
 
 
-def _old_coarse_sum(vals, ptr, ent, n, init=None, shift=0):
+def _old_coarse_sum(vals, ptr, ent, n, init=None, shift=0,
+                    long_segments=False):
     """coarse_matrix's entries as they were summed: one flat index_add_
-    over the terms in the plan's order."""
+    over the terms in the plan's order (``long_segments``, the kernel's
+    choice of mode, changes nothing here)."""
     assert ent is None and init is None
     dd = vals.shape[0]
     terms = vals.T.reshape(-1)

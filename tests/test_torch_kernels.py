@@ -20,10 +20,12 @@ from mycelium_tpu_torch.devices import moved
 from mycelium_tpu_torch.fea import build_model, solve_displacement
 from mycelium_tpu_torch.fea.chain import plan_active_masks_bool
 from mycelium_tpu_torch.fea.ramp import anchored_mask_host
-from mycelium_tpu_torch.fea.solve import compute_tree_factor
+from mycelium_tpu_torch.fea.solve import (chain_preconditioner,
+                                          compute_tree_factor)
 from mycelium_tpu_torch.growth import (TorchDraws, growth_step, init_state,
                                        neighbors, run_growth, summarize)
-from mycelium_tpu_torch.fea.tree_factor import build_tree_kernel_tables
+from mycelium_tpu_torch.fea.tree_factor import (build_pcr_launch,
+                                                build_tree_kernel_tables)
 from mycelium_tpu_torch.fea.tree_solve import preconditioner_reg
 from mycelium_tpu_torch.kernels import (ChainOperator, TreeCgLaunch,
                                         anast_scan, anast_scan_plain,
@@ -38,8 +40,9 @@ from mycelium_tpu_torch.kernels.tree_cg import (NEAR_WINDOW, STALL_WINDOW,
 from mycelium_tpu_torch.scenes import petri_dish
 # imported by its own name (pytest puts tests/ on sys.path): a machine
 # with an unrelated installed package named "tests" shadows tests.*
-from torch_support import (all_levels, cuda_device,  # noqa: F401
-                           emulate_anast_by_cell, fixed_order_sums,
+from torch_support import (all_levels, bound_sweep_pairs,  # noqa: F401
+                           cuda_device, emulate_anast_by_cell,
+                           fixed_order_sums,
                            grip_for, level0,
                            random_forest_mesh, rel_err, scan_args,
                            synthetic_mesh, tie_state)
@@ -156,7 +159,7 @@ def _hybrid_case(device, frac=0.05):
 
 
 def test_pcr_factor_launch_matches_cpu_plain(cuda_device):  # noqa: F811
-    """K2 bound to the hybrid model's levels (``PcrFactorLaunch``: one
+    """K2 bound to the hybrid model's levels (``PcrLaunch``: one
     launch a windowed level) on every level of a factorization against
     its plain version on the CPU on copies of the same inputs: every
     output equal (torch.equal; only the sign of a zero may differ)."""
@@ -204,6 +207,125 @@ def test_fixed_order_sums_bit_equal_on_card(cuda_device):  # noqa: F811
     for n in ref:
         assert torch.equal(one[n], two[n]) and torch.equal(one[n].cpu(),
                                                            ref[n]), n
+
+
+def _sweep_twice(m, launch, factor, rp):
+    """K3's bound sweep twice against the plain version on the CPU: every
+    pair torch.equal (only the sign of a zero may differ), 2 launches a
+    PCR level and one ordered_sum (the tail's right-hand side) each."""
+    L = len(launch.sizes)
+    for _ in range(2):
+        reset_launch_counts()
+        pairs = bound_sweep_pairs(m.tree, launch, factor, rp)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        assert counts["pcr_apply"] == 2 * L and counts["ordered_sum"] == 1
+        assert len(pairs) == L + 2
+        for name, (k, c) in pairs.items():
+            assert torch.equal(k.cpu(), c), name
+
+
+def test_pcr_sweep_matches_cpu_plain(cuda_device):  # noqa: F811
+    """K3 bound to the hybrid model's levels (``PcrLaunch``: one launch a
+    level and sweep on path-aligned windows) on every PCR level of a
+    factorization (level 1 with Schur corrections and incoming
+    attachments), forward and backward, against its plain version on the
+    CPU on copies of the same inputs; and the hybrid's tree
+    preconditioner makes 2 K3 launches a PCR level and at most one
+    ordered_sum an apply."""
+    m, cfg, act, free = _hybrid_case(cuda_device)
+    launch = m.pcr_launch
+    L = len(launch.sizes)
+    assert L >= 2 and all(launch.windowed) and launch.ordered
+    factor = compute_tree_factor(m, act, cfg, free & m.free_nodes)
+    gen = np.random.default_rng(8)
+    rp = torch.as_tensor(gen.standard_normal((3, m.n_nodes)),
+                         dtype=torch.float32, device=cuda_device)
+    _sweep_twice(m, launch, factor, rp)
+    pc = chain_preconditioner(dataclasses.replace(m, tree_kernel=False),
+                              act, cfg, free & m.free_nodes,
+                              tree_factor_val=factor)
+    reset_launch_counts()
+    z = pc(rp)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["pcr_apply"] == 2 * L and counts["ordered_sum"] <= 1
+    assert counts["pcr_factor"] == 0
+    z2 = pc(rp)
+    assert z.data_ptr() != z2.data_ptr() and torch.equal(z, z2)
+
+
+def test_pcr_sweep_halo_level_matches_cpu_plain(cuda_device):  # noqa: F811
+    """The same with windows of 8 slots: a level with a longer path runs
+    the sweep's halo form, the other levels finer windows."""
+    m, cfg, act, free = _hybrid_case(cuda_device)
+    launch = build_pcr_launch(m.tree, window=8)
+    assert not all(launch.windowed) and any(launch.windowed)
+    factor = compute_tree_factor(m, act, cfg, free & m.free_nodes)
+    gen = np.random.default_rng(9)
+    rp = torch.as_tensor(gen.standard_normal((3, m.n_nodes)),
+                         dtype=torch.float32, device=cuda_device)
+    _sweep_twice(m, launch, factor, rp)
+
+
+def test_dense_tail_inverse_same_bits_twice(cuda_device):  # noqa: F811
+    """The dense tail's matrix adds in one fixed order on the card
+    (fixed_order_sums holds it to the CPU); two factorizations of the same
+    system give the same inverse bit for bit."""
+    m, cfg, act, free = _hybrid_case(cuda_device)
+    one = compute_tree_factor(m, act, cfg, free & m.free_nodes).sinv.clone()
+    two = compute_tree_factor(m, act, cfg, free & m.free_nodes).sinv
+    assert one.shape[0] > 0 and torch.equal(one, two)
+
+
+def test_ordered_sum_matches_cpu_plain(cuda_device):  # noqa: F811
+    """The fixed-order sum against its plain version on the CPU on copies
+    of the same inputs, twice: long segments (the coarse blocks: a block a
+    segment; float64 and float32, terms as rows and as planes, through
+    entries, 9 and 36 columns; and a thread a sum), short ones (the attachment CSR, float32,
+    terms as rows, a start value as planes), shifted entries (the jump
+    CSR, terms as planes)."""
+    from mycelium_tpu_torch.fea.coarse import cluster_layout, n_basis
+    from mycelium_tpu_torch.kernels import ordered_sum, ordered_sum_plain
+    m, cfg, _, _ = _hybrid_case(cuda_device)
+    ccfg = dataclasses.replace(cfg, precond="coarse")
+    _, _, nbc, width = cluster_layout(m.n_nodes, ccfg)
+    plan = m.coarse_plans.get(nbc, width, n_basis(ccfg))
+    gen = np.random.default_rng(10)
+
+    def rand(shape, dtype):
+        return torch.as_tensor(gen.standard_normal(shape), dtype=dtype,
+                               device=cuda_device)
+    nblk, nent = plan.blk_row.shape[0], plan.blk_ent.shape[0]
+    S, P = m.tree.n_slots, m.tree.n_paths
+    jp, n = m.chain.ja.shape[0], m.n_nodes
+    perm = torch.randperm(nent, generator=torch.Generator().manual_seed(1))
+    cases = [
+        (rand((nent, 9), torch.float64).T, plan.blk_ptr, None, nblk, None,
+         0, True),
+        # long segments as planes with a start value, through entries, and
+        # 36 columns (the linear basis)
+        (rand((9, nent), torch.float32), plan.blk_ptr, None, nblk,
+         rand((9, nblk), torch.float32), 0, True),
+        (rand((9, nent), torch.float64), plan.blk_ptr,
+         perm.to(torch.int32).to(cuda_device), nblk, None, 0, True),
+        (rand((nent, 36), torch.float64).T, plan.blk_ptr, None, nblk,
+         rand((36, nblk), torch.float64), 0, True),
+        # the coarse blocks a thread a sum, too
+        (rand((nent, 9), torch.float64).T, plan.blk_ptr, None, nblk, None,
+         0, False),
+        (rand((2 * P, 9), torch.float32).T, m.tree.att_ptr, m.tree.att_ent,
+         S, rand((9, S), torch.float32), 0, False),
+        (rand((9, jp), torch.float32), m.chain.k32.jump_ptr,
+         m.chain.k32.jump_ent, n, None, 1, False)]
+    assert int(torch.diff(plan.blk_ptr).max()) > 16
+    for vals, ptr, ent, n_seg, init, shift, long_ in cases:
+        k1 = ordered_sum(vals, ptr, ent, n_seg, init, shift, long_)
+        k2 = ordered_sum(vals, ptr, ent, n_seg, init, shift, long_)
+        c = ordered_sum_plain(*moved((vals, ptr, ent), "cpu"), n_seg,
+                              None if init is None else init.cpu(), shift)
+        torch.cuda.synchronize()
+        assert torch.equal(k1, k2) and torch.equal(k1.cpu(), c)
 
 
 def test_pcr_apply_matches_plain(cuda_device):  # noqa: F811

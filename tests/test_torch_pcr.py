@@ -128,7 +128,7 @@ def test_k2_windows_equal_the_whole_level(name, frac):
     exactly (torch.equal: only the sign of a zero may differ); the launch's
     own plain version (flags back to path ends) equals pcr_factor_plain."""
     from mycelium_tpu_torch.fea.tree_factor import (n_pcr_levels,
-                                                    pcr_factor_launch)
+                                                    build_pcr_launch)
     m, cfg, conn = _hybrid_model(name)
     launch = m.pcr_launch
     L = n_pcr_levels(m.tree.meta)
@@ -145,7 +145,7 @@ def test_k2_windows_equal_the_whole_level(name, frac):
             assert torch.equal(a, b)
     # a window shorter than a level's longest path: that level keeps the
     # global rounds, the others are cut finer and still equal
-    small = pcr_factor_launch(m.tree, window=8)
+    small = build_pcr_launch(m.tree, window=8)
     po, fgh, lgh = (m.tree.meta.path_offsets, m.tree.first_gpos.numpy(),
                     m.tree.last_gpos.numpy())
     longest = [int((lgh[po[i]:po[i + 1]] - fgh[po[i]:po[i + 1]]).max()) + 1

@@ -398,8 +398,9 @@ def fixed_order_sums(model, act, free, coarse_plan, reg, reg_pc, rp):
     (fault P7), on the device of ``model``'s tensors, as a dict of copies
     by name: the chain diagonal's jump terms, the coarse Galerkin matrix
     over ``coarse_plan``, the hybrid factorization's Schur corrections
-    (dacc) and its forward sweep's right-hand sides (racc: each level's K3
-    solution and the dense tail's right-hand side); and each PCR level's
+    (dacc), the dense tail's matrix, and its forward sweep's right-hand
+    sides (racc: each level's K3 solution, level by level through the
+    unbound K3, and the dense tail's right-hand side); and each PCR level's
     K2 outputs (al, be, dinv, xc), whose inputs carry the earlier levels'
     Schur corrections and fill edges. K2 goes through ``model.pcr_launch``;
     a model without one (a CPU copy) gets a launch built on its device,
@@ -407,8 +408,9 @@ def fixed_order_sums(model, act, free, coarse_plan, reg, reg_pc, rp):
     from mycelium_tpu_torch.fea.chain import plan_active_masks_bool
     from mycelium_tpu_torch.fea.coarse import coarse_matrix
     from mycelium_tpu_torch.fea.tree_factor import (
-        TreeFactor, chain_diag, n_pcr_levels, pcr_factor_launch,
-        tree_factor_inputs, tree_factor_levels, tree_forward_sweep)
+        TreeFactor, attachment_couplings, build_pcr_launch, chain_diag,
+        dense_tail_matrix, n_pcr_levels, tree_factor_inputs,
+        tree_factor_levels, tree_forward_sweep)
     tree, fast, cplan = model.tree, model.tree_fast, model.chain
     free_chain = free[cplan.perm]
     cab, jab = plan_active_masks_bool(cplan, act)
@@ -420,10 +422,15 @@ def fixed_order_sums(model, act, free, coarse_plan, reg, reg_pc, rp):
     D_g, B_elem, katt = tree_factor_inputs(tree, fast, cplan, act, free,
                                            free_chain, reg_pc, model.conn,
                                            cab, jab)
-    keep = _KeepLevels(model.pcr_launch or pcr_factor_launch(tree))
-    al, be, dinv, att_b, _, out["dacc"] = tree_factor_levels(
-        tree, D_g, B_elem, katt, n_pcr_levels(tree.meta),
-        fast.meta.level_left_fill, keep)
+    keep = _KeepLevels(model.pcr_launch or build_pcr_launch(tree))
+    L = n_pcr_levels(tree.meta)
+    al, be, dinv, att_b, fill_B, out["dacc"] = tree_factor_levels(
+        tree, D_g, B_elem, katt, L, fast.meta.level_left_fill, keep)
+    t0, S = tree.meta.level_offsets[L], tree.n_slots
+    if S > t0:
+        out["dense tail matrix"] = dense_tail_matrix(
+            tree, D_g[:, t0:S], out["dacc"][:, t0:S], attachment_couplings(
+                tree, act, free, model.conn, tree.dense_eid), fill_B)
     for li, level in enumerate(keep.levels):
         out.update({f"K2 level {li} {n}": t for n, t in
                     zip(("al", "be", "dinv", "xc"), level)})
@@ -515,6 +522,129 @@ def emulate_pcr_windows(launch, li, D, B):
                                  torch.nonzero(cw & 2).flatten(), steps)
         for o, p in zip(out, parts):
             o[..., ws:we] = p
+    return out
+
+
+def _csr_add(init, ptr, ent, src):
+    """init (3, n) plus, for each column s, src[ent[j]] for j from ptr[s]
+    to ptr[s + 1] - 1, added one after another (the kernels' order)."""
+    out = init.clone()
+    start, deg = ptr[:-1].long(), (ptr[1:] - ptr[:-1]).long()
+    ent = ent.long()
+    for k in range(int(deg.max()) if len(deg) else 0):
+        has = deg > k
+        out[:, has] = out[:, has] + src[ent[start[has] + k]].T
+    return out
+
+
+def _level_apply(launch, li, factor, rhs):
+    """K3's rounds on level ``li`` as the bound launch runs them: the plain
+    apply of each path-aligned window alone, put together; on a level
+    with no windows (the halo form) the plain apply of the whole level."""
+    from mycelium_tpu_torch.kernels import pcr_apply_plain
+    al, be, dinv = factor.alphas[li], factor.betas[li], factor.dinvs[li]
+    start, lens, n = launch.windows[li]
+    if not n:
+        return pcr_apply_plain(al, be, dinv, rhs)
+    out = torch.empty_like(rhs)
+    for ws, wl in zip(start.tolist(), lens.tolist()):
+        w = slice(ws, ws + wl)
+        out[:, w] = pcr_apply_plain(al[..., w], be[..., w], dinv[:, w],
+                                    rhs[:, w])
+    return out
+
+
+def emulate_pcr_sweep(launch, factor, rp, u_tail=None):
+    """K3's bound sweep (``PcrLaunch.apply``) on the CPU in the kernels'
+    order of work, from the launch's own tables: per level, each slot's
+    forward right-hand side (rp plus the negated attachment products of
+    earlier levels' path ends in the CSR's order), the rounds window by
+    window (``_level_apply``), the store of y and of the level's own path
+    ends' products; the dense tail's right-hand side from the tail CSR;
+    then per level from the last the backward right-hand side (ab^T·u at
+    the junction, side 0 then side 1) and u = y - T^{-1} z. ``u_tail``
+    replaces the tail's solution (the tail's matrix product is not
+    bit-equal across BLAS libraries). Returns (the forward result with
+    each level's y on its slots, the tail's right-hand side, u)."""
+    from mycelium_tpu_torch.fea.tree_factor import tree_tail_solve
+    L = len(launch.sizes)
+    lo, po, S = launch.level_offsets, launch.path_offsets, launch.n_slots
+    t0 = lo[L]
+    ptr, ent = launch.att_ptr.cpu(), launch.att_ent.cpu()
+    fp, lp = launch.first_path.cpu().long(), launch.last_path.cpu().long()
+    tgt = launch.att_tgt.cpu().long()
+    ab = factor.att_b.reshape(-1, 3, 3)
+    u = rp.new_zeros((3, S))
+    nv = rp.new_zeros((2 * po[L], 3))
+
+    def ends(s0, s1):
+        for side, paths in ((0, fp[s0:s1]), (1, lp[s0:s1])):
+            has = paths >= 0
+            yield has, 2 * paths[has] + side
+
+    for li in range(L):
+        s0, s1 = lo[li], lo[li + 1]
+        y = _level_apply(launch, li, factor,
+                         _csr_add(rp[:, s0:s1], ptr[s0:s1 + 1], ent, nv))
+        u[:, s0:s1] = y
+        for has, e in ends(s0, s1):
+            m, v = ab[e], y[:, has].T
+            nv[e] = -(m[:, :, 0] * v[:, 0:1] + m[:, :, 1] * v[:, 1:2]
+                      + m[:, :, 2] * v[:, 2:3])
+    forward = u.clone()
+    r_tail = _csr_add(rp[:, t0:S], launch.tail_ptr.cpu(),
+                      launch.tail_ent.cpu(), nv)
+    u[:, t0:] = tree_tail_solve(factor, r_tail) if u_tail is None \
+        else u_tail
+    for li in range(L - 1, -1, -1):
+        s0, s1 = lo[li], lo[li + 1]
+        z = rp.new_zeros((3, s1 - s0))
+        for has, e in ends(s0, s1):
+            t = tgt[e]
+            w = rp.new_zeros((len(e), 3))
+            w[t < S] = u[:, t[t < S]].T
+            m = ab[e]
+            z[:, has] = z[:, has] + (m[:, 0, :] * w[:, 0:1]
+                                     + m[:, 1, :] * w[:, 1:2]
+                                     + m[:, 2, :] * w[:, 2:3]).T
+        u[:, s0:s1] = u[:, s0:s1] - _level_apply(launch, li, factor, z)
+    return forward, r_tail, u
+
+
+def bound_sweep_pairs(plan, launch, factor, rp):
+    """K3's bound sweep on the card (``launch``: forward, the dense tail's
+    right-hand side, backward fed the card's tail solution) beside its
+    plain version on the CPU on copies of the same inputs (the same tail
+    solution): a dict of (card, CPU) pairs by name, each level's y, the
+    tail's right-hand side and the result. On CPU tensors (a rehearsal of
+    chip_smoke.py on the CPU) ``emulate_pcr_sweep`` stands for the
+    card."""
+    from mycelium_tpu_torch.devices import moved
+    from mycelium_tpu_torch.fea.tree_factor import (
+        n_pcr_levels, tree_backward_sweep, tree_forward_sweep,
+        tree_tail_solve)
+    meta = plan.meta
+    L = n_pcr_levels(meta)
+    t0 = meta.level_offsets[L]
+    if rp.device.type == "cpu":
+        fwd, r_tail, u = emulate_pcr_sweep(launch, factor, rp)
+        u_tail = u[:, t0:]
+    else:
+        u, nv = launch.forward(factor, rp)
+        fwd = u.clone()
+        r_tail = launch.tail_rhs(nv, rp) if plan.n_slots > t0 \
+            else rp.new_zeros((3, 0))
+        u_tail = tree_tail_solve(factor, r_tail)
+        u[:, t0:] = u_tail
+        launch.backward(factor, u)
+    plan_c, factor_c = moved(plan, "cpu"), moved(factor, "cpu")
+    ys, r_tail_c = tree_forward_sweep(plan_c, factor_c, rp.cpu())
+    out = {f"K3 forward level {li}": (
+        fwd[:, meta.level_offsets[li]:meta.level_offsets[li + 1]], ys[li])
+        for li in range(L)}
+    out["K3 tail right-hand side"] = (r_tail, r_tail_c)
+    out["K3 backward"] = (u, tree_backward_sweep(plan_c, factor_c, ys,
+                                                 u_tail.cpu()))
     return out
 
 
