@@ -2,9 +2,10 @@
 
     python3 chip_smoke.py
 
-Drives the port (``mycelium_tpu_torch``) through its three paths, the FEA
-pull test, the solver sweep, and growth with the coupled pipeline, and
-fails (non-zero exit) if any phase fails:
+Drives the port (``mycelium_tpu_torch``) through its paths, the FEA pull
+test, the solver sweep, growth with the coupled pipeline, checkpoints and
+the sharded solve and ramp, and fails (non-zero exit) if any phase
+fails:
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``mycelium_tpu_torch/kernels/csrc``;
@@ -92,9 +93,27 @@ fails (non-zero exit) if any phase fails:
    counts set to 0 before and read after: grow -> mesh -> model on the
    card -> cold solve (float64 residual check) -> 40-step ramp, the
    solves through K6 where the model can run it;
-13. every reading that traces the card (each kernel's ``device_ms``, K5's
+13. checkpoints, counts set to 0 before and read after (K6 and K4 must
+   launch): the 22k ramp of phase 7 stopped after 20 steps with
+   ``checkpoint_every=20`` and resumed from the file, every record bit
+   for bit the unsplit run's; the same ramp run on the CPU in float32,
+   stopped after 20 steps and resumed on the card, within 1e-3 of the
+   card's run at every step; the file's size, save and load times; the
+   demo growth split at step 75 and resumed, every field bit for bit;
+14. the sharded path over a one-rank NCCL group (a ``file://`` store):
+   the single-device references first, then, counts set to 0, the
+   sharded tree solve at 22,125 and 309k DOF (K2, K3, ``ordered_sum``)
+   against the hybrid (1e-3 of max |x|, iterations within ±1, the
+   float64 residual), the sharded coarse solve at 22,125 DOF against K5
+   (iterations within 2%), each timed with its element operator alone,
+   and the 40-step sharded ramp at 309k DOF against ``run_ramp`` on the
+   hybrid (equal active records, forces within 1e-3); K2, K3 and
+   ``ordered_sum`` must launch; the card has one GPU, so no multi-GPU
+   number is taken;
+15. every reading that traces the card (each kernel's ``device_ms``, K5's
    and K6's time by iteration cap, the device operations and host syncs of
-   a K5 and a K6 solve, K5's fresh builds), last: a ``torch.profiler``
+   a K5, a K6 and each sharded solve, the NCCL kernels' device time, K5's
+   fresh builds), last: a ``torch.profiler``
    window slows every later launch of the process on the host, so it may
    not precede a phase that is timed on the host's clock.
 
@@ -104,11 +123,12 @@ none it exits non-zero and prints no result. No JAX is imported.
 
 Time: the whole run must end within 1200 s, the kernels' build included;
 phases 4 and 8 (K5 and the sweep) have a budget of 90 s of it. On an
-H100 the run took 40 to 60 s in one call with its parent's.
+H100 the run took 118 s with phases 13 and 14.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -1028,8 +1048,9 @@ def compare_fixed_order_sums(model, conn, cfg, device, rng, label: str,
               if ref[n].numel() else 0.0 for n in ref)
     levels = sum(n.startswith("K2 level") for n in ref) // 4
     log(f"P7 fixed-order sums, {label} 5% fractured: chain_diag, "
-        f"coarse_matrix, dacc, K2's outputs on {levels} PCR levels and racc "
-        f"over them and the tail; two runs and the CPU bit-equal: {not bad} "
+        f"coarse_matrix, dacc, K2's outputs on {levels} PCR levels, racc "
+        f"over them and the tail, diag_blocks and the scatter operator; two "
+        f"runs and the CPU bit-equal: {not bad} "
         f"(max |diff| from the CPU {err:.3e})")
     if bad or levels < min_levels:
         raise AssertionError(f"P7 {label}: not bit-equal twice and to the "
@@ -1780,6 +1801,318 @@ def coupled_pipeline(preset: str, device, fea_steps: int = 40) -> dict:
                 **t)
 
 
+class _Interrupted(Exception):
+    """Stands for a run killed between two ramp steps."""
+
+
+@contextlib.contextmanager
+def interrupted_after(n_steps: int):
+    """Let ``run_ramp`` take ``n_steps`` steps, then stop it before the
+    next one, as a job cut by its time limit: what it checkpointed by then
+    is on disk."""
+    from mycelium_tpu_torch.fea import ramp
+    real, calls = ramp.ramp_step, [0]
+
+    def step(*args, **kw):
+        calls[0] += 1
+        if calls[0] > n_steps:
+            raise _Interrupted
+        return real(*args, **kw)
+
+    ramp.ramp_step = step
+    try:
+        yield
+    except _Interrupted:
+        pass
+    finally:
+        ramp.ramp_step = real
+
+
+def ramp_records_equal(a, b) -> list:
+    """The names of the records in which two ramp results differ."""
+    return [f for f in ("stress_record", "active_record", "disp_record",
+                        "force_disp", "cg_iters")
+            if not np.array_equal(getattr(a, f), getattr(b, f))]
+
+
+def ramp_checkpoint_check(coords, conn, cfg, model, device, loop, tmp,
+                          split: int = 20) -> dict:
+    """Phase 13, the ramp half: the ramp of ``ramp_check`` (``loop``, on
+    the route of ``model``) run for ``split`` steps with
+    ``checkpoint_every=split`` and stopped, then resumed from the file:
+    every record bit for bit the unsplit run's. Then a float32 run of the
+    same ramp on the CPU (K6's plain version), stopped after ``split``
+    steps, resumed on the card: every step within 1e-3 of the card's
+    unsplit run (displacement rel L2 and force), as ``ramp_check`` holds
+    the card to the CPU path. The file's save and load times and size."""
+    from mycelium_tpu_torch.fea import build_model, run_ramp
+    from mycelium_tpu_torch.io.checkpoint import (load_ramp_state,
+                                                  save_ramp_state)
+    path = os.path.join(tmp, "fea_checkpoint.npz")
+    with interrupted_after(split):
+        run_ramp(coords, conn, cfg, model=model, checkpoint_path=path,
+                 checkpoint_every=split)
+    t0 = time.perf_counter()
+    state = load_ramp_state(path)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    save_ramp_state(os.path.join(tmp, "again.npz"), *state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    size = os.path.getsize(path)
+    if state[0] != split:
+        raise AssertionError(f"ramp checkpoint at step {state[0]}, not "
+                             f"{split}")
+    t0 = time.perf_counter()
+    res = run_ramp(coords, conn, cfg, model=model, resume_from=path)
+    sync(device)
+    resume_s = time.perf_counter() - t0
+    bad = ramp_records_equal(res, loop)
+    log(f"ramp checkpoint {model.n_dof} DOF: stopped after {split} steps, "
+        f"resumed to step {res.force_disp.shape[0]} in {resume_s:.3f} s; "
+        f"every record equal to the unsplit run: {not bad} {bad}; the file "
+        f"{size} bytes, save {save_ms:.3f} ms, load {load_ms:.3f} ms")
+    if bad:
+        raise AssertionError(f"resumed ramp differs from the unsplit run: "
+                             f"{bad}")
+    cpu_path = os.path.join(tmp, "fea_checkpoint_cpu.npz")
+    t0 = time.perf_counter()
+    cpu = build_model(coords, conn, cfg, "cpu")
+    with interrupted_after(split):
+        run_ramp(coords, conn, cfg, model=cpu, checkpoint_path=cpu_path,
+                 checkpoint_every=split)
+    cpu_s = time.perf_counter() - t0
+    mixed = run_ramp(coords, conn, cfg, model=model, resume_from=cpu_path)
+    worst_u = worst_f = 0.0
+    for step in range(1, loop.force_disp.shape[0]):
+        ref = loop.disp_record[step]
+        worst_u = max(worst_u, float(
+            np.linalg.norm(mixed.disp_record[step] - ref)
+            / max(np.linalg.norm(ref), 1e-300)))
+        f = loop.force_disp[step, 1]
+        worst_f = max(worst_f, abs(mixed.force_disp[step, 1] - f)
+                      / max(abs(f), 1e-300))
+    same_shape = mixed.force_disp.shape == loop.force_disp.shape
+    same_active = same_shape and np.array_equal(mixed.active_record,
+                                                 loop.active_record)
+    log(f"ramp checkpoint written on the CPU after {split} steps ("
+        f"{cpu_s:.2f} s there), resumed on the card: "
+        f"{mixed.force_disp.shape[0]} steps, displacement rel L2 "
+        f"{worst_u:.3e}, force rel {worst_f:.3e} from the card's unsplit "
+        f"run (tol 1e-3), active records equal {same_active}")
+    if not (same_shape and worst_u <= 1e-3 and worst_f <= 1e-3):
+        raise AssertionError("the ramp resumed from the CPU's checkpoint "
+                             "disagrees with the card's run")
+    return dict(split=split, file_bytes=size, save_ms=save_ms,
+                load_ms=load_ms, resume_s=resume_s, cpu_file_disp=worst_u,
+                cpu_file_force=worst_f)
+
+
+def growth_checkpoint_check(preset: str, device, tmp) -> dict:
+    """Phase 13, the growth half: the preset grown unsplit, and split at
+    half its steps by a checkpoint and resumed through K4: every state
+    field, the anastomosis grid and the stats equal bit for bit."""
+    import torch
+    from mycelium_tpu_torch.config import GROWTH_PRESETS
+    from mycelium_tpu_torch.growth import run_growth
+    from mycelium_tpu_torch.io.checkpoint import (GROWTH_FIELDS,
+                                                  load_growth_state)
+    cfg = GROWTH_PRESETS[preset]
+    half = cfg.t_steps // 2
+    path = os.path.join(tmp, "growth_checkpoint.npz")
+    full, _, hist = run_growth(cfg, device=device)
+    run_growth(dataclasses.replace(cfg, t_steps=half), device=device,
+               checkpoint_path=path, checkpoint_every=half)
+    t0 = time.perf_counter()
+    st, draws = load_growth_state(path, cfg, device)
+    load_ms = (time.perf_counter() - t0) * 1e3
+    res, _, hist_r = run_growth(cfg, device=device, initial_state=st,
+                                draws=draws)
+    sync(device)
+    bad = [k for k in GROWTH_FIELDS
+           if not (torch.equal(getattr(res, k), getattr(full, k))
+                   if torch.is_tensor(getattr(res, k))
+                   else getattr(res, k) == getattr(full, k))]
+    bad += [f"grid.{k}" for k in ("ids", "geo", "count")
+            if not torch.equal(getattr(res.grid, k), getattr(full.grid, k))]
+    if hist_r != hist[half:]:
+        bad.append("history")
+    log(f"growth checkpoint {preset}: split at step {half} of "
+        f"{cfg.t_steps}, resumed: every field, the grid and the stats "
+        f"equal to the unsplit run: {not bad} {bad}; {full.n_seg} segments, "
+        f"{hist[-1]['anastomosed']} anastomosed; the file "
+        f"{os.path.getsize(path)} bytes, load {load_ms:.3f} ms")
+    if bad:
+        raise AssertionError(f"resumed growth differs: {bad}")
+    return dict(split=half, steps=cfg.t_steps,
+                file_bytes=os.path.getsize(path))
+
+
+def cold_inputs(model, conn, cfg, device) -> tuple:
+    """(active, anchored, x0, dy) of a cold solve of the intact system with
+    its grip-unreachable islands pinned, as ``cold_solve`` sets it up."""
+    import torch
+    from mycelium_tpu_torch.fea.ramp import anchored_mask_host
+    grip = (model.top_nodes | model.bot_nodes).cpu().numpy()
+    anch = torch.as_tensor(anchored_mask_host(
+        np.asarray(conn), np.ones(model.n_elems, bool), grip), device=device)
+    active = torch.ones(model.n_elems, dtype=torch.bool, device=device)
+    x0 = torch.zeros((model.n_nodes, 3), dtype=model.dtype, device=device)
+    return active, anch, x0, cfg.displacement_max
+
+
+def single_reference(single, conn, cfg, device) -> tuple:
+    """(x, iterations) of the single-device cold solve of ``single``
+    (a copy: a K5 or K6 result is a launch buffer)."""
+    from mycelium_tpu_torch.fea import solve_displacement
+    active, anch, x0, dy = cold_inputs(single, conn, cfg, device)
+    ref = solve_displacement(single, active, dy, -dy, x0, cfg, anch)
+    if not ref.converged:
+        raise AssertionError("the single-device reference did not converge")
+    return ref.x.clone(), ref.iters
+
+
+def sharded_solve_check(model, ref, coords, conn, cfg, device, label: str,
+                        rel_slack: float, limit: float) -> dict:
+    """Phase 14, one system: the sharded solve over the one-rank group
+    (``fea/shard.py``) against ``ref`` (``single_reference`` of the same
+    system): relative max error at most 1e-3 of max |x|, iterations within
+    max(1, rel_slack x the reference's); then its cold solves timed with
+    the float64 residual check (bound ``limit``), and, in the traced tail,
+    its device operations, host syncs and the NCCL kernels' device
+    time."""
+    import torch
+    from mycelium_tpu_torch.fea.shard import sharded_cg_solver
+    ref_x, ref_iters = ref
+    active, anch, x0, dy = cold_inputs(model, conn, cfg, device)
+    solver = sharded_cg_solver(model, cfg)
+    res = solver(active, dy, -dy, x0, anch)
+    _, err = rel_err([res.x], [ref_x])
+    slack = max(1, int(rel_slack * ref_iters))
+    log(f"{label}: sharded {res.iters} iterations (converged "
+        f"{res.converged}), single device {ref_iters} (slack {slack}); "
+        f"relative max error {err:.3e} (tol 1e-3)")
+    if not (res.converged and err <= 1e-3
+            and abs(res.iters - ref_iters) <= slack):
+        raise AssertionError(f"{label}: the sharded solve disagrees with "
+                             f"the single-device solve (err {err:.3e}, "
+                             f"{res.iters} against {ref_iters} iterations)")
+    ms, iters = cold_solve(model, coords, conn, cfg, device,
+                           f"{label}, sharded cold solve", 5, limit=limit,
+                           route=lambda m, a, dt, db, x, c, an:
+                           solver(a, dt, db, x, an))
+    # the element operator alone (all_gather, element forces, the node
+    # sums through ordered_sum, reduce_scatter) beside K1's reading
+    u_l = solver.local(torch.randn((model.n_nodes, 3), dtype=model.dtype,
+                                   device=device,
+                                   generator=torch.Generator(device)
+                                   .manual_seed(0)))
+    act_l = solver.local_active(active)
+    op_ms = timed_ms(lambda: solver.stiffness(u_l, act_l), device, 20)
+    log(f"{label}: the element operator (all_gather, forces, ordered_sum, "
+        f"reduce_scatter) {op_ms:.4f} ms a call")
+    row = dict(ms=ms, iters=iters, single_iters=ref_iters, max_rel_err=err,
+               operator_ms=op_ms)
+
+    def solve():
+        return solver(active, dy, -dy, x0, anch)
+
+    def read(device):
+        row.update(solve_footprint(solve, device, f"{label}, sharded"))
+        nccl = 0.0
+        if device.type == "cuda":
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    solve()
+                torch.cuda.synchronize()
+            nccl = sum(e.device_time for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and "nccl" in e.name.lower()) / 1e3 / 3
+        row["nccl_device_ms"] = nccl
+        log(f"{label}, sharded: NCCL kernels {nccl:.4f} ms of device time "
+            "a solve")
+
+    defer(read)
+    return row
+
+
+def sharded_ramp_check(coords, conn, cfg, model, device, loop,
+                       loop_s: float) -> dict:
+    """Phase 14, the ramp: ``run_ramp_sharded`` over the one-rank group
+    against ``loop``, ``run_ramp`` of the same model forced onto the
+    hybrid: every step converges (the drivers raise otherwise), equal
+    active records, forces within 1e-3 relative of the largest."""
+    from mycelium_tpu_torch.fea import run_ramp_sharded
+    t0 = time.perf_counter()
+    res = run_ramp_sharded(coords, conn, cfg, model=model)
+    sync(device)
+    wall = time.perf_counter() - t0
+    same = res.active_record.shape == loop.active_record.shape and \
+        np.array_equal(res.active_record, loop.active_record)
+    fs = max(np.abs(loop.force_disp[:, 1]).max(), 1e-300)
+    df = float(np.abs(res.force_disp[:, 1] - loop.force_disp[:, 1]).max()
+               / fs) if same else float("inf")
+    log(f"sharded ramp {model.n_dof} DOF: {res.force_disp.shape[0]} steps "
+        f"in {wall:.3f} s ({int(res.cg_iters.sum())} CG iterations; "
+        f"run_ramp on the hybrid {loop_s:.3f} s, "
+        f"{int(loop.cg_iters.sum())}), "
+        f"{int((~res.active_record[-1]).sum())} elements fractured, active "
+        f"records equal {same}, force rel {df:.3e} (tol 1e-3)")
+    if not (same and df <= 1e-3
+            and res.force_disp.shape[0] == cfg.n_steps):
+        raise AssertionError("the sharded ramp disagrees with run_ramp")
+    return dict(steps=int(res.force_disp.shape[0]), wall_s=wall,
+                loop_s=loop_s, iters=int(res.cg_iters.sum()),
+                loop_iters=int(loop.cg_iters.sum()), force_rel=df)
+
+
+def sharded_path(model, coords, conn, cfg, model_b, coords_b, conn_b,
+                 cfg_b, grip_b, device) -> tuple:
+    """Phase 14: a one-rank process group (NCCL on the card, over a
+    ``file://`` store), the references on one device first, then, with the
+    launch counts set to 0, the sharded tree solves at both sizes (K2, K3,
+    ``ordered_sum``), the sharded coarse solve at the small size against
+    K5 (iterations within 2%), and the 40-step sharded ramp at the large
+    size. Returns the readings and the sharded path's launch counts."""
+    import torch.distributed as dist
+    from mycelium_tpu_torch.config import hybrid_fea_config
+    from mycelium_tpu_torch.fea import run_ramp
+    from mycelium_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from mycelium_tpu_torch.utils.dist import initialize_single
+    t0 = time.perf_counter()
+    initialize_single(device)
+    log(f"one-rank process group, {dist.get_backend()}, in "
+        f"{time.perf_counter() - t0:.2f} s")
+    hyb, hyb_b = (dataclasses.replace(m, tree_kernel=False)
+                  for m in (model, model_b))
+    kcfg = k5_config()
+    ramp_b = hybrid_fea_config(grip_length=grip_b, tree_coarse_weight=0.25)
+    refs = {"tree_22k": single_reference(hyb, conn, cfg, device),
+            "tree_309k": single_reference(hyb_b, conn_b, cfg_b, device),
+            "coarse_22k": single_reference(model, conn, kcfg, device)}
+    t0 = time.perf_counter()
+    loop = run_ramp(coords_b, conn_b, ramp_b, model=hyb_b)
+    sync(device)
+    loop_s = time.perf_counter() - t0
+    reset_launch_counts()
+    out = {
+        "tree_22k": sharded_solve_check(
+            hyb, refs["tree_22k"], coords, conn, cfg, device,
+            f"sharded tree {model.n_dof} DOF", 0.0, STALL_LIMIT),
+        "tree_309k": sharded_solve_check(
+            hyb_b, refs["tree_309k"], coords_b, conn_b, cfg_b, device,
+            f"sharded tree {model_b.n_dof} DOF, coarse weight "
+            f"{cfg_b.tree_coarse_weight}", 0.0, STALL_LIMIT),
+        "coarse_22k": sharded_solve_check(
+            model, refs["coarse_22k"], coords, conn, kcfg, device,
+            f"sharded coarse {model.n_dof} DOF against K5", 0.02,
+            10.0 * SWEEP_RTOL + F32_MARGIN),
+        "ramp_309k": sharded_ramp_check(coords_b, conn_b, ramp_b, hyb_b,
+                                        device, loop, loop_s)}
+    sync(device)
+    return out, launch_counts()
+
+
 def run(device, n_small: int = 7375, n_big: int = 103000,
         big_growth: str = "xlarge", growth_steps: int = GROWTH_STEPS,
         trajectory: str = "demo", coupled: str = "medium",
@@ -1935,7 +2268,6 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     sweep_counts = launch_counts()
     log(f"kernel launches on the sweep path: {sweep_counts} "
         f"({time.perf_counter() - t0:.2f} s)")
-    del model_b
 
     # the growth path at full width
     st, gcfg, growth = grow_full_width(big_growth, growth_steps, device)
@@ -1950,6 +2282,29 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     sync(device)
     pipe_counts = launch_counts()
     log(f"kernel launches on the coupled pipeline: {pipe_counts}")
+
+    # checkpoints: the 22k ramp on its route (K6) and the trajectory
+    # preset's growth (K4), each split and resumed
+    import tempfile
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = dict(ramp=ramp_checkpoint_check(coords, conn, ramp_cfg, model,
+                                               device, loop, tmp),
+                    growth=growth_checkpoint_check(trajectory, device, tmp))
+    sync(device)
+    ckpt_counts = launch_counts()
+    log(f"kernel launches on the checkpoint path: {ckpt_counts} "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # the sharded path over a one-rank group
+    t0 = time.perf_counter()
+    shard, shard_counts = sharded_path(model, coords, conn, cfg, model_b,
+                                       coords_b, conn_b, cfg_b, grip_b,
+                                       device)
+    log(f"kernel launches on the sharded path: {shard_counts} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    del model_b
     # each kernel's launches are read on the path that is its own, and
     # every path must have launched what it is said to run
     hyb = ("chain_matvec", "pcr_factor", "pcr_apply", "ordered_sum")
@@ -1960,9 +2315,14 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
            "tree_cg": ("FEA", fea_counts),
            "chain_cg": ("sweep", sweep_counts),
            "anast_scan": ("growth", grow_counts)}
+    paths = {"FEA": fea_counts, "sweep": sweep_counts,
+             "growth": grow_counts, "coupled": pipe_counts,
+             "checkpoint": ckpt_counts, "sharded": shard_counts}
     for row in rows:
         row["path"], counts = own[row["name"]]
         row["launches"] = counts[row["name"]]
+        row["launches_by_path"] = {p: c[row["name"]]
+                                   for p, c in paths.items()}
     if device.type == "cuda":
         solve = ("tree_cg",) if model.tree_kernel else hyb
         pipe_solve = ("tree_cg",) if pipe["route"] == "tree_cg" else hyb
@@ -1971,6 +2331,11 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
         missing += [f"sweep {k}" for k in hyb + solve if sweep_counts[k] < 1]
         missing += [f"coupled {k}" for k in pipe_solve + ("anast_scan",)
                     if pipe_counts[k] < 1]
+        missing += [f"checkpoint {k}" for k in ("tree_cg", "anast_scan")
+                    if ckpt_counts[k] < 1]
+        missing += [f"sharded {k}" for k in ("pcr_factor", "pcr_apply",
+                                             "ordered_sum")
+                    if shard_counts[k] < 1]
         if missing:
             raise AssertionError(f"kernels never launched: {missing}")
     # every traced reading, now that nothing timed on the host follows
@@ -1978,6 +2343,8 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     run_deferred(device)
     log(f"device times and the K6 solve's footprint "
         f"{time.perf_counter() - t0:.2f} s")
+    import torch.distributed as dist
+    dist.destroy_process_group()
     # the 22k readings of K1-K3 beside the rows' own (the 309k shapes)
     for big, small in zip(rows309, rows22):
         big.update({f"{k}_22k": v for k, v in small.items()
@@ -1991,7 +2358,7 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
                 iters_309k=it309, hybrid_ms_309k=hyb309,
                 hybrid_iters_309k=hyb_it309, hybrid_apply_309k=hyb_apply,
                 sweep=sweep, growth=growth,
-                coupled=pipe)
+                coupled=pipe, checkpoints=ckpt, sharded=shard)
 
 
 def main() -> int:

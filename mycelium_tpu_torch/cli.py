@@ -1,11 +1,14 @@
 """Command line of the port (counterpart of ``mycelium_tpu.cli``):
 
-  python -m mycelium_tpu_torch.cli grow [--out results] [--dir D]
-      [--steps N] [--seed S] [--capacity C] [--preset P]
-      [--snapshots none|csv] [--csv-variant python|cpp] [--device cuda|cpu]
-  python -m mycelium_tpu_torch.cli fea <results_dir> [--fea-steps N]
-      [--grip G] [--disp-max D] [--preset fast|reference] [--f64] [--scan]
+  python -m mycelium_tpu_torch.cli [--distributed] grow [--out results]
+      [--dir D] [--steps N] [--seed S] [--capacity C] [--preset P]
+      [--snapshots none|csv] [--checkpoint-every K] [--resume FILE]
       [--csv-variant python|cpp] [--device cuda|cpu]
+  python -m mycelium_tpu_torch.cli [--distributed] fea <results_dir>
+      [--fea-steps N] [--grip G] [--disp-max D] [--preset fast|reference]
+      [--f64] [--scan] [--sharded [N]] [--fea-checkpoint-every K]
+      [--fea-resume FILE] [--trace DIR] [--csv-variant python|cpp]
+      [--device cuda|cpu]
   python -m mycelium_tpu_torch.cli pipeline [grow options] [fea options]
       (the growth preset is --growth-preset there)
   python -m mycelium_tpu_torch.cli sweep <results_dir> [--trials N] [--f64]
@@ -25,14 +28,28 @@ results directory's mesh and writes ``runtime_results.csv`` and its
 ``_meta.json``. The CSVs are the JAX package's contracts. Without
 ``--device`` a command needs a CUDA card and stops if
 there is none; ``--device cpu`` runs the plain PyTorch versions of the
-kernels on the host. Not ported yet: 3D growth (ROADMAP queue A item 13),
-``--resume``/``--checkpoint-every`` (queue A item 12) and PNG snapshots
-and plots (queue A item 14).
+kernels on the host.
+
+Checkpoints: ``grow --checkpoint-every K`` saves
+``<dir>/growth_checkpoint.npz`` every K steps and ``--resume FILE`` goes
+on from one; ``fea --fea-checkpoint-every K`` saves
+``<results_dir>/fea_checkpoint.npz`` every K ramp steps (the loop
+drivers) and ``--fea-resume FILE`` goes on from one (a file the JAX
+package wrote too). ``--sharded [N]`` runs every solve of the ramp
+domain-decomposed over the ranks of the process group (``--distributed``:
+one process a rank as ``torchrun`` starts them, NCCL on cards, gloo with
+``--device cpu``; without it a group of this process alone); N, if given,
+must be the group's size. Only rank 0 writes files. ``--trace DIR``
+writes a ``torch.profiler`` Chrome trace of the ramp into DIR.
+
+Not ported yet: 3D growth (ROADMAP queue A, A5) and PNG snapshots and
+plots (A6).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -54,14 +71,17 @@ def _device(args) -> str:
 def _not_ported(args) -> None:
     if args.three_d:
         raise NotImplementedError("3D growth is not ported yet: ROADMAP "
-                                  "queue A item 13")
-    if args.resume or args.checkpoint_every:
-        raise NotImplementedError("growth checkpoints (--resume, "
-                                  "--checkpoint-every) are not ported yet: "
-                                  "ROADMAP queue A item 12")
+                                  "queue A, A5")
     if args.snapshots == "png":
         raise NotImplementedError("PNG snapshots are not ported yet: "
-                                  "ROADMAP queue A item 14")
+                                  "ROADMAP queue A, A6")
+
+
+def _run_device(args):
+    """The command's device: this rank's card (``cuda:LOCAL_RANK``), or
+    the CPU."""
+    from .utils.dist import rank_device
+    return rank_device(_device(args))
 
 
 def cmd_grow(args) -> str:
@@ -69,9 +89,10 @@ def cmd_grow(args) -> str:
     from .growth import run_growth
     from .growth.export import export_state_geometry, write_state_snapshot
     from .io import write_growth_stats
+    from .utils.dist import is_coordinator
 
     _not_ported(args)
-    device = _device(args)
+    device = _run_device(args)
     cfg = GROWTH_PRESETS[args.growth_preset]
     overrides = {}
     if args.steps is not None:
@@ -85,20 +106,38 @@ def cmd_grow(args) -> str:
 
     out_dir = args.dir or os.path.join(
         args.out, datetime.datetime.now().strftime("sim_%Y%m%d_%H%M%S"))
-    os.makedirs(out_dir, exist_ok=True)
+    writer = is_coordinator()
+    if writer:
+        os.makedirs(out_dir, exist_ok=True)
     on_step = None
-    if args.snapshots == "csv":
+    if args.snapshots == "csv" and writer:
         snapshot_dir = os.path.join(out_dir, "snapshots")
 
         def on_step(t, st):
             write_state_snapshot(st, snapshot_dir, t)
 
+    initial_state = draws = None
+    if args.resume:
+        from .io.checkpoint import load_growth_state
+        initial_state, draws = load_growth_state(args.resume, cfg, device)
+        if draws is None:
+            raise SystemExit(f"{args.resume} holds a JAX PRNG key, not a "
+                             "draw state: the port cannot go on with that "
+                             "key's stream")
+        print(f"resuming from {args.resume} at step {initial_state.step}")
+    ckpt_path = os.path.join(out_dir, "growth_checkpoint.npz") \
+        if args.checkpoint_every else None
+
     print(f"growing: {cfg.t_steps} steps on {device} -> {out_dir}")
-    st, _, history = run_growth(cfg, device=device, on_step=on_step,
-                                verbose=args.verbose)
-    write_growth_stats(out_dir, history, variant=args.csv_variant)
-    export_state_geometry(st, out_dir)
-    save_run_configs(out_dir, growth=cfg)
+    st, _, history = run_growth(cfg, device=device, draws=draws,
+                                on_step=on_step, verbose=args.verbose,
+                                initial_state=initial_state,
+                                checkpoint_path=ckpt_path,
+                                checkpoint_every=args.checkpoint_every)
+    if writer:
+        write_growth_stats(out_dir, history, variant=args.csv_variant)
+        export_state_geometry(st, out_dir)
+        save_run_configs(out_dir, growth=cfg)
     final = history[-1]
     print(f"done: {final['hyphae']} hyphae, {final['segments']} segments, "
           f"{final['total_length_mm']:.1f} mm")
@@ -110,8 +149,16 @@ def cmd_fea(args) -> str:
     from .fea import run_ramp, run_ramp_scan, truncate_after_fracture
     from .io import (read_mesh_dir, write_fea_records, write_runtime,
                      write_solve_runtimes)
+    from .utils.dist import initialize_single, is_coordinator, process_count
 
-    device = _device(args)
+    device = _run_device(args)
+    if args.sharded is not None:
+        import torch.distributed as dist
+        if not dist.is_initialized():
+            initialize_single(device)
+        if args.sharded != -1 and args.sharded != process_count():
+            raise SystemExit(f"--sharded {args.sharded}: the process group "
+                             f"has {process_count()} ranks")
     t0 = time.time()
     coords, conn = read_mesh_dir(args.results_dir)
     overrides = {}
@@ -127,25 +174,43 @@ def cmd_fea(args) -> str:
            else FeaConfig(**overrides))
     print(f"FEA on {args.results_dir}: {coords.shape[0]} nodes, "
           f"{conn.shape[0]} elements, device {device}")
-    if args.scan:
-        res = truncate_after_fracture(
-            run_ramp_scan(coords, conn, cfg, device=device))
-    else:
-        res = run_ramp(coords, conn, cfg, device=device)
+    ckpt = dict(checkpoint_path=os.path.join(args.results_dir,
+                                             "fea_checkpoint.npz")
+                if args.fea_checkpoint_every else None,
+                checkpoint_every=args.fea_checkpoint_every,
+                resume_from=args.fea_resume)
+    traced = contextlib.nullcontext()
+    if args.trace and is_coordinator():
+        from .utils.profiling import trace
+        traced = trace(args.trace)
+    with traced:
+        if args.sharded is not None:
+            from .fea import run_ramp_sharded
+            res = run_ramp_sharded(coords, conn, cfg, device=device, **ckpt)
+        elif args.scan:
+            res = truncate_after_fracture(
+                run_ramp_scan(coords, conn, cfg, device=device))
+        else:
+            res = run_ramp(coords, conn, cfg, device=device, **ckpt)
+    if args.trace and is_coordinator():
+        print(f"trace -> {args.trace}")
     fea_dir = os.path.join(args.results_dir, "fea_results")
-    write_fea_records(fea_dir, res.stress_record, res.active_record,
-                      res.disp_record, res.force_disp,
-                      variant=args.csv_variant)
-    write_solve_runtimes(fea_dir, res.solve_seconds)
-    write_runtime(fea_dir, time.time() - t0)
-    save_run_configs(args.results_dir, fea=cfg)
+    if is_coordinator():
+        write_fea_records(fea_dir, res.stress_record, res.active_record,
+                          res.disp_record, res.force_disp,
+                          variant=args.csv_variant)
+        write_solve_runtimes(fea_dir, res.solve_seconds)
+        write_runtime(fea_dir, time.time() - t0)
+        save_run_configs(args.results_dir, fea=cfg)
     print(f"{res.force_disp.shape[0]} steps, peak force "
           f"{res.force_disp[:, 1].max():.6g} -> {fea_dir}")
     return fea_dir
 
 
 def cmd_pipeline(args) -> str:
+    from .utils.dist import coordinator_barrier
     args.results_dir = cmd_grow(args)
+    coordinator_barrier("mesh")     # rank 0 wrote the mesh the ranks read
     return cmd_fea(args)
 
 
@@ -153,14 +218,15 @@ def cmd_sweep(args) -> str:
     from .bench import run_solver_sweep
     from .config import FeaConfig
     from .io import read_mesh_dir
+    from .utils.dist import is_coordinator
 
-    device = _device(args)
+    device = _run_device(args)
     coords, conn = read_mesh_dir(args.results_dir)
     cfg = FeaConfig(dtype="float64" if args.f64 else "float32")
     out_csv = os.path.join(args.results_dir, "runtime_results.csv")
     rows = run_solver_sweep(coords, conn, cfg, trials=args.trials,
-                            out_csv=out_csv, verbose=args.verbose,
-                            device=device)
+                            out_csv=out_csv if is_coordinator() else None,
+                            verbose=args.verbose, device=device)
     print(f"{len(rows)} timings -> {out_csv}")
     return out_csv
 
@@ -170,6 +236,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="mycelium_tpu_torch.cli", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the process group torchrun describes "
+                         "(MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, "
+                         "LOCAL_RANK) before any tensor is made: NCCL on "
+                         "cards, gloo with --device cpu; rank 0 writes the "
+                         "files")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     def common(g):
@@ -190,8 +262,10 @@ def build_parser() -> argparse.ArgumentParser:
         g.add_argument("--three-d", action="store_true")
         g.add_argument("--snapshots", choices=("none", "csv", "png"),
                        default="csv")
-        g.add_argument("--checkpoint-every", type=int, default=0)
-        g.add_argument("--resume", default=None)
+        g.add_argument("--checkpoint-every", type=int, default=0,
+                       help="save growth_checkpoint.npz every K steps")
+        g.add_argument("--resume", default=None, metavar="FILE",
+                       help="resume growth from a growth checkpoint")
         g.add_argument("--verbose", action="store_true")
 
     def fea_args(g):
@@ -208,6 +282,18 @@ def build_parser() -> argparse.ArgumentParser:
                             "preconditioner with the coarse correction; "
                             "'reference' = FeaConfig defaults (ELL + "
                             "block-Jacobi)")
+        g.add_argument("--sharded", type=int, nargs="?", const=-1,
+                       default=None, metavar="N",
+                       help="domain-decompose every solve over the ranks "
+                            "of the process group (N: its size, checked)")
+        g.add_argument("--fea-checkpoint-every", type=int, default=0,
+                       help="save fea_checkpoint.npz every K ramp steps "
+                            "(loop drivers)")
+        g.add_argument("--fea-resume", default=None, metavar="FILE",
+                       help="resume the ramp from a ramp checkpoint")
+        g.add_argument("--trace", default=None, metavar="DIR",
+                       help="write a torch.profiler Chrome trace of the "
+                            "ramp into DIR")
 
     g = sub.add_parser("grow", help="run the growth simulation")
     grow_args(g, "--preset")
@@ -235,6 +321,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.distributed:
+        from .utils.dist import initialize_distributed
+        initialize_distributed(device=_device(args))
     args.fn(args)
     return 0
 

@@ -214,8 +214,8 @@ def growth_state_from_jax(arrays: dict, cfg, device) -> GrowthState:
     if "grid.ids" in a:
         g, gz = grid_dims(cfg)
         if gz != 1:
-            raise NotImplementedError("3D growth grids: ROADMAP queue A "
-                                      "item 13")
+            raise NotImplementedError("3D growth grids: ROADMAP queue A, "
+                                      "A5")
         M, C = g * g, cfg.max_per_cell
 
         def cell_major(x):

@@ -12,6 +12,9 @@ positions) the same for every solver, as the reference's sweep has them.
 
 Everything index-shaped is built once per mesh on the host in numpy and
 moved to one device; per-step "assembly" is masking fractured elements.
+The node sums whose terms collide (the 'scatter' operator, the diagonal
+blocks) add in one fixed order through ``kernels.ordered_sum`` over the
+model's node incidence CSR, so the card gives the CPU's bits.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from ..devices import DEFAULT_DEVICE, resolve
+from ..kernels.ordered_sum import ordered_sum
 from .blocks import block_planes
 from .chain import ChainPlan, build_chain_plan, greedy_path_cover
 from .elements import ElementGeometry, element_forces, element_geometry_host
@@ -70,6 +74,10 @@ class FeaModel:
     # with every model whose forest has levels, it allocates K2's buffers at
     # the model's first factorization on the card (the hybrid route's)
     pcr_launch: object | None = None
+    # the node incidence CSR (``node_incidence_csr``, int32): node i's
+    # entries 2·e + side at node_ent[node_ptr[i]:node_ptr[i + 1]]
+    node_ptr: torch.Tensor | None = None
+    node_ent: torch.Tensor | None = None
 
     @property
     def n_nodes(self) -> int:
@@ -116,6 +124,21 @@ def _build_incidence(conn: np.ndarray, n_nodes: int):
     sign[sorted_nodes, slot] = sgn[order]
     neighbor[sorted_nodes, slot] = other[order]
     return incident, sign, neighbor
+
+
+def node_incidence_csr(conn: np.ndarray, n_nodes: int):
+    """(ptr (n_nodes + 1,), ent) int32: node i's element ends as entries
+    2·e + side, the elements whose first end is i in element order, then
+    those whose second end is i: the order of the sequential
+    ``index_add_`` over conn[:, 0], then over conn[:, 1]."""
+    conn = np.asarray(conn, np.int64).reshape(-1, 2)
+    n_elems = conn.shape[0]
+    ends = np.concatenate([conn[:, 0], conn[:, 1]])
+    ent = np.concatenate([2 * np.arange(n_elems), 2 * np.arange(n_elems) + 1])
+    order = np.argsort(ends, kind="stable")
+    ptr = np.zeros(n_nodes + 1, np.int64)
+    ptr[1:] = np.cumsum(np.bincount(ends, minlength=n_nodes))
+    return ptr.astype(np.int32), ent[order].astype(np.int32)
 
 
 def _unified_order(schedule, n_nodes: int) -> np.ndarray:
@@ -194,7 +217,8 @@ def build_model(coords: np.ndarray, conn: np.ndarray, cfg,
 
 
 def with_kernels(model: FeaModel) -> FeaModel:
-    """``model`` with its whole-solve kernels: its coarse plans, K5's
+    """``model`` with its node incidence CSR and its whole-solve kernels:
+    its coarse plans, K5's
     launch (bound at its first solve) and, where its forest has levels, K2
     bound to its levels, the tree kernel's index tables, whether it can run
     that kernel and, if it can, the kernel's launch bound to it."""
@@ -202,7 +226,10 @@ def with_kernels(model: FeaModel) -> FeaModel:
     from ..kernels.tree_cg import TreeCgLaunch
     from .coarse import CoarsePlans
     plans = CoarsePlans(model.chain, model.n_elems)
-    model = replace(model, coarse_plans=plans, chain_launch=ChainCgLaunch(
+    ptr, ent = node_incidence_csr(model.conn.cpu().numpy(), model.n_nodes)
+    model = replace(model, node_ptr=torch.as_tensor(ptr, device=model.device),
+                    node_ent=torch.as_tensor(ent, device=model.device),
+                    coarse_plans=plans, chain_launch=ChainCgLaunch(
         plans, model.free_nodes, model.top_nodes, model.bot_nodes))
     launch = None
     if model.tree.meta.level_steps:
@@ -257,13 +284,14 @@ def tree_kernel_fits(model: FeaModel) -> bool:
 def apply_stiffness(model: FeaModel, u, active, operator: str = "ell"):
     """Matrix-free K·u on node-major (N, 3) -> (N, 3): per-element end
     forces reduced through the gather-only ELL incidence table ('ell'), or
-    scattered to the element ends ('scatter')."""
+    summed at the element ends in the node incidence CSR's order
+    ('scatter')."""
     f = element_forces(u, model.conn, model.geom, active)
     if operator == "scatter":
-        out = torch.zeros_like(u)
-        out.index_add_(0, model.conn[:, 0], f)
-        out.index_add_(0, model.conn[:, 1], -f)
-        return out
+        # column 2·e + side: f at the first end, -f at the second
+        ends = torch.stack([f, -f], dim=1).reshape(-1, 3)
+        return ordered_sum(ends.T, model.node_ptr, model.node_ent,
+                           model.n_nodes).T.contiguous()
     f_pad = torch.cat([f, f.new_zeros((1, 3))])
     return (model.sign[:, :, None] * f_pad[model.incident]).sum(dim=1)
 
@@ -277,10 +305,8 @@ def diag_blocks(model: FeaModel, active, cfg, free_nodes=None):
     blk = (model.geom.k_ax[:, None, None] * nnT
            + model.geom.k_bd[:, None, None] * (eye - nnT))
     blk = blk * active[:, None, None].to(blk.dtype)
-    out = torch.zeros((model.n_nodes, 3, 3), dtype=blk.dtype,
-                      device=blk.device)
-    out.index_add_(0, model.conn[:, 0], blk)
-    out.index_add_(0, model.conn[:, 1], blk)
+    out = ordered_sum(blk.reshape(-1, 9).T, model.node_ptr, model.node_ent,
+                      model.n_nodes, shift=1).T.reshape(-1, 3, 3)
     out = out + cfg.reg * eye
     free = model.free_nodes if free_nodes is None else free_nodes
     return torch.where(free[:, None, None], out, eye)

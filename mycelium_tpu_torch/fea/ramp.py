@@ -1,7 +1,8 @@
 """The quasi-static tensile pull test (port of ``mycelium_tpu/fea/ramp.py``:
 ``RampResult``, ``ramp_step``, ``post_solve``, ``anchored_mask_host``,
-``anchored_mask_device``, the ``run_ramp`` loop and the device-resident
-loops ``run_ramp_async`` and ``run_ramp_scan``).
+``anchored_mask_device``, the ``run_ramp`` loop with its checkpoints,
+``run_ramp_sharded`` and the device-resident loops ``run_ramp_async`` and
+``run_ramp_scan``).
 
 40-step displacement ramp, dy = ±displacement_max·step/(n_steps−1): solve
 under grip BCs, reactions with the pre-BC stiffness, axial strains on the
@@ -135,29 +136,103 @@ def ramp_step(model: FeaModel, cfg, active, x0, dy_top: float,
             res.converged)
 
 
-def run_ramp(coords, conn, cfg, device=DEFAULT_DEVICE,
-             model: Optional[FeaModel] = None) -> RampResult:
-    """Python-loop pull-test ramp with warm starts, factor reuse and the
-    reference's early stop on full fracture, on ``model`` if given, else
-    on a model built on ``device`` (the card unless the caller passes
-    "cpu")."""
-    t0 = time.time()
-    if model is None:
-        model = build_model(coords, conn, cfg, device)
+class _Records:
+    """The per-step records of the loop drivers, with their checkpoint
+    files: ``resume`` reads a file's position, mask, last displacement and
+    records, ``save`` writes them (coordinator only). The file's names are
+    the JAX package's, so a file written by either package resumes in the
+    other."""
+
+    def __init__(self):
+        self.stress, self.active, self.disp, self.fd = [], [], [], []
+        self.secs, self.iters = [], []
+
+    def resume(self, path: str, cfg):
+        """(next step, active mask, last displacement, previous step's
+        ramp factor) of the file at ``path``; its records become these."""
+        from ..io.checkpoint import load_ramp_state
+        step, active_np, u_prev, recs = load_ramp_state(path)
+        self.stress = list(recs["stress"])
+        self.active = list(recs["active"])
+        self.disp = list(recs["disp"])
+        self.fd = [list(r) for r in recs["fd"]]
+        self.secs = list(recs["solve_secs"])
+        self.iters = [int(i) for i in recs["iters"]]
+        prev_factor = (step - 1) / (cfg.n_steps - 1) if step > 0 else 0.0
+        return step, active_np.astype(bool), u_prev, prev_factor
+
+    def add(self, stress, active_np, u, dy: float, force: float,
+            secs: float, iters: int) -> None:
+        self.stress.append(stress.cpu().numpy())
+        self.active.append(active_np)
+        self.disp.append(u.cpu().numpy().reshape(-1))
+        self.fd.append([dy, force])
+        self.secs.append(secs)
+        self.iters.append(int(iters))
+
+    def save(self, path: str, next_step: int, active_np, u_prev) -> None:
+        """``u_prev`` is copied to the host: a K6 result is a launch
+        buffer, and a resumed run takes its warm start from the file."""
+        from ..io.checkpoint import save_ramp_state
+        save_ramp_state(path, next_step, active_np, u_prev.cpu().numpy(),
+                        records=dict(
+                            stress=np.stack(self.stress),
+                            active=np.stack(self.active),
+                            disp=np.stack(self.disp),
+                            fd=np.asarray(self.fd, dtype=np.float64),
+                            solve_secs=np.asarray(self.secs),
+                            iters=np.asarray(self.iters, dtype=np.int64)))
+
+    def result(self, t0: float) -> RampResult:
+        return RampResult(
+            stress_record=np.stack(self.stress),
+            active_record=np.stack(self.active),
+            disp_record=np.stack(self.disp),
+            force_disp=np.asarray(self.fd, dtype=np.float64),
+            solve_seconds=np.asarray(self.secs),
+            cg_iters=np.asarray(self.iters, dtype=np.int64),
+            total_seconds=time.time() - t0)
+
+
+def _ramp_start(model: FeaModel, cfg, recs: _Records,
+                resume_from: Optional[str]):
+    """(first step, active mask on the host and on the device, last
+    displacement, previous ramp factor): the ramp's start, or the
+    position of the checkpoint ``resume_from``."""
     dtype, dev = model.dtype, model.device
-    active_np = np.ones(model.n_elems, bool)
-    active = torch.ones(model.n_elems, dtype=torch.bool, device=dev)
-    u_prev = torch.zeros((model.n_nodes, 3), dtype=dtype, device=dev)
-    prev_factor = 0.0
-    stress_rec, active_rec, disp_rec, fd_rec = [], [], [], []
-    solve_secs, iters_rec = [], []
+    if resume_from is None:
+        active_np = np.ones(model.n_elems, bool)
+        u_prev = torch.zeros((model.n_nodes, 3), dtype=dtype, device=dev)
+        return 0, active_np, torch.as_tensor(active_np, device=dev), \
+            u_prev, 0.0
+    step, active_np, u_np, prev_factor = recs.resume(resume_from, cfg)
+    return step, active_np, torch.as_tensor(active_np, device=dev), \
+        torch.as_tensor(u_np, dtype=dtype, device=dev), prev_factor
+
+
+def _checkpoint_due(path, every: int, step: int, start_step: int) -> bool:
+    return path is not None and every > 0 \
+        and (step + 1 - start_step) % every == 0
+
+
+def _loop_ramp(model: FeaModel, cfg, step_fn, use_fac: bool,
+               checkpoint_path: Optional[str], checkpoint_every: int,
+               resume_from: Optional[str]) -> _Records:
+    """The loop of ``run_ramp`` and ``run_ramp_sharded``: ``step_fn(active,
+    x0, dy_top, dy_bot, anchored, factor)`` is the step (what
+    ``ramp_step`` returns), and the tree-PC factorization is kept between
+    steps where ``use_fac``."""
+    recs = _Records()
+    start_step, active_np, active, u_prev, prev_factor = _ramp_start(
+        model, cfg, recs, resume_from)
 
     anchored = refresh_anchored(model, active)
-    use_fac = keeps_factor(model, cfg)
     fac = compute_tree_factor(model, active, cfg, anchored) if use_fac \
         else None
 
-    for step in range(cfg.n_steps):
+    for step in range(start_step, cfg.n_steps):
+        if step > 0 and not active_np.any():
+            break   # resumed past full fracture: nothing left to solve
         dy_top, dy_bot = _step_factors(cfg, step)
         # warm start: the response is linear between fracture events
         factor = step / (cfg.n_steps - 1)
@@ -167,16 +242,13 @@ def run_ramp(coords, conn, cfg, device=DEFAULT_DEVICE,
             x0 = torch.zeros_like(u_prev)
         ts = time.time()
         u, stress, active_new, total_force, iters, resnorm, converged = \
-            ramp_step(model, cfg, active, x0, dy_top, dy_bot, anchored, fac)
+            step_fn(active, x0, dy_top, dy_bot, anchored, fac)
         _check_converged(converged, step, resnorm)
-        solve_secs.append(time.time() - ts)
+        secs = time.time() - ts
 
         active_new_np = active_new.cpu().numpy()
-        active_rec.append(active_new_np)
-        fd_rec.append([dy_top - dy_bot, float(total_force)])
-        iters_rec.append(iters)
-        stress_rec.append(stress.cpu().numpy())
-        disp_rec.append(u.cpu().numpy().reshape(-1))
+        recs.add(stress, active_new_np, u, dy_top - dy_bot,
+                 float(total_force), secs, iters)
 
         if not np.array_equal(active_new_np, active_np):
             # fracture changed the topology: refresh grip reachability and
@@ -186,17 +258,73 @@ def run_ramp(coords, conn, cfg, device=DEFAULT_DEVICE,
                 fac = compute_tree_factor(model, active_new, cfg, anchored)
         u_prev, active, active_np, prev_factor = \
             u, active_new, active_new_np, factor
+        if _checkpoint_due(checkpoint_path, checkpoint_every, step,
+                           start_step):
+            recs.save(checkpoint_path, step + 1, active_np, u_prev)
         if not active_new_np.any():
             break   # early stop on full fracture
+    return recs
 
-    return RampResult(
-        stress_record=np.stack(stress_rec),
-        active_record=np.stack(active_rec),
-        disp_record=np.stack(disp_rec),
-        force_disp=np.asarray(fd_rec, dtype=np.float64),
-        solve_seconds=np.asarray(solve_secs),
-        cg_iters=np.asarray(iters_rec, dtype=np.int64),
-        total_seconds=time.time() - t0)
+
+def run_ramp(coords, conn, cfg, device=DEFAULT_DEVICE,
+             model: Optional[FeaModel] = None,
+             checkpoint_path: Optional[str] = None,
+             checkpoint_every: int = 0,
+             resume_from: Optional[str] = None) -> RampResult:
+    """Python-loop pull-test ramp with warm starts, factor reuse and the
+    reference's early stop on full fracture, on ``model`` if given, else
+    on a model built on ``device`` (the card unless the caller passes
+    "cpu").
+
+    With ``checkpoint_path`` and ``checkpoint_every`` > 0 the ramp's state
+    (next step, active mask, last displacement, records) is saved after
+    every step with (step + 1 - first step) % checkpoint_every == 0;
+    ``resume_from`` goes on from such a file: the grip reachability and
+    the factorization are rebuilt from its mask and the warm start comes
+    from its displacement, so the records equal the unsplit run's."""
+    t0 = time.time()
+    if model is None:
+        model = build_model(coords, conn, cfg, device)
+
+    def step_fn(active, x0, dy_top, dy_bot, anchored, fac):
+        return ramp_step(model, cfg, active, x0, dy_top, dy_bot, anchored,
+                         fac)
+
+    return _loop_ramp(model, cfg, step_fn, keeps_factor(model, cfg),
+                      checkpoint_path, checkpoint_every,
+                      resume_from).result(t0)
+
+
+def run_ramp_sharded(coords, conn, cfg, device=DEFAULT_DEVICE,
+                     model: Optional[FeaModel] = None, group=None,
+                     checkpoint_path: Optional[str] = None,
+                     checkpoint_every: int = 0,
+                     resume_from: Optional[str] = None) -> RampResult:
+    """The pull test with every solve domain-decomposed over the ranks of
+    ``group`` (``fea/shard.py``; the default process group if None).
+    Every rank runs this driver with the same arguments, on its own device
+    (``utils.dist.rank_device``): the tree-PC factorization is computed on
+    every rank and reused while the mask is unchanged, the grip
+    reachability is refreshed after each fracture, and the reactions,
+    stresses and fractures are computed on the full solution on every
+    rank. The checkpoint arguments are ``run_ramp``'s; only the
+    coordinator writes."""
+    from .shard import sharded_cg_solver
+    t0 = time.time()
+    if model is None:
+        model = build_model(coords, conn, cfg, device)
+    solver = sharded_cg_solver(model, cfg, group)
+
+    def step_fn(active, x0, dy_top, dy_bot, anchored, fac):
+        res = solver(active, dy_top, dy_bot, x0, anchored, fac)
+        stress, active_new, total_force = post_solve(model, cfg, res.x,
+                                                     active)
+        return (res.x, stress, active_new, total_force, res.iters,
+                res.resnorm, res.converged)
+
+    use_fac = cfg.precond == "tree" and model.tree_fast is not None
+    return _loop_ramp(model, cfg, step_fn, use_fac, checkpoint_path,
+                      checkpoint_every, resume_from).result(t0)
 
 
 def truncate_after_fracture(res: RampResult) -> RampResult:

@@ -21,7 +21,7 @@ tests hold it bit-equal to its full per-step rebucket):
 - K4 (``kernels/anast.py``) scans, per tip, those 4 cells x 2 sources.
 
 3D configurations (gz > 1) and configurations that break the corner
-window's reach bound raise NotImplementedError (ROADMAP queue A item 13);
+window's reach bound raise NotImplementedError (ROADMAP queue A, A5);
 the JAX package's per-step rebucket, its 9-cell window and its TPU knobs
 (``anast_kernel``, ``MYC_ANAST_KERNEL``) are layout choices for the TPU
 and are not read.
@@ -65,7 +65,7 @@ def check_layout(cfg: GrowthConfig) -> int:
         raise NotImplementedError(
             "the corner-window anastomosis query needs (h0 + tol)/2 + tol "
             "<= voxel_size/2; the 9-cell window for other configurations "
-            "is not ported yet: ROADMAP queue A item 13")
+            "is not ported yet: ROADMAP queue A, A5")
     if cfg.max_tips_per_cell > 32:
         raise NotImplementedError(
             "the anastomosis scan kernel takes a corner cell's tips one a "

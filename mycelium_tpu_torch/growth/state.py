@@ -103,7 +103,7 @@ def not_ported_3d(cfg: GrowthConfig) -> None:
     if cfg.three_d:
         raise NotImplementedError(
             "3D growth (three_d=True, a grid with gz > 1) is not ported "
-            "yet: ROADMAP queue A item 13")
+            "yet: ROADMAP queue A, A5")
 
 
 class EnvArrays(NamedTuple):

@@ -28,7 +28,7 @@ from .draws import StepDraws, TorchDraws
 from .neighbors import detect_anastomosis
 from .ops import enforce_walls, grow, translocate, uptake
 from .state import (ACTIVE, ANASTOMOSED, PASSIVE, EnvArrays, GrowthState,
-                    init_state)
+                    ensure_grid, init_state, state_env_arrays)
 
 STAT_KEYS = ("hyphae", "segments", "active_tips", "passive_tips",
              "anastomosed", "branches", "total_length_mm")
@@ -91,25 +91,48 @@ def summarize(st: GrowthState, cfg: GrowthConfig) -> Dict:
 def run_growth(cfg: GrowthConfig, env: Environment | None = None,
                seed: int | None = None, device=DEFAULT_DEVICE,
                draws=None, on_step: Optional[Callable] = None,
-               verbose: bool = False, syncs: Optional[StepSyncs] = None):
+               verbose: bool = False, syncs: Optional[StepSyncs] = None,
+               initial_state: Optional[GrowthState] = None,
+               checkpoint_path: Optional[str] = None,
+               checkpoint_every: int = 0):
     """Grow ``cfg.t_steps`` steps from the inoculum on ``device`` (the
     card unless the caller passes "cpu"). Returns (final state, env
     arrays, history): one stats dict per step in reference column order.
     ``draws`` is the draw source (default: a ``TorchDraws`` seeded from
-    ``seed`` or cfg.seed); ``on_step(t, state)`` runs after each step."""
+    ``seed`` or cfg.seed); ``on_step(t, state)`` runs after each step.
+
+    ``initial_state`` resumes a run from a saved state and needs the draw
+    source saved with it (``io.checkpoint.load_growth_state`` returns
+    both): the run goes on from ``initial_state.step`` and equals the
+    unsplit run bit for bit. With ``checkpoint_path`` and
+    ``checkpoint_every`` > 0 the state and the draw source's state are
+    saved after every step t with (t + 1) % checkpoint_every == 0."""
     device = resolve(device)
     if env is None:
         env = petri_dish(cfg)
-    if draws is None:
-        draws = TorchDraws(cfg.seed if seed is None else seed, device)
-    st, ea = init_state(cfg, env, device=device, draws=draws)
+    if initial_state is not None:
+        if draws is None:
+            raise ValueError("a resumed growth run takes the draw source "
+                             "saved with its state "
+                             "(io.checkpoint.load_growth_state)")
+        st = ensure_grid(initial_state, cfg)
+        ea = state_env_arrays(env, cfg, st.device)
+    else:
+        if draws is None:
+            draws = TorchDraws(cfg.seed if seed is None else seed, device)
+        st, ea = init_state(cfg, env, device=device, draws=draws)
     dtype = st.sub.dtype
     H = cfg.max_hyphae
     walls = ea.wall_center.shape[0] > 0
+    start_step = st.step
     device_stats, hyphae = [], []
-    for t in range(st.step, cfg.t_steps):
+    for t in range(start_step, cfg.t_steps):
         st = growth_step(st, ea, cfg, draws.step(H, dtype, walls),
                          syncs=syncs)
+        if checkpoint_path and checkpoint_every > 0 \
+                and (t + 1) % checkpoint_every == 0:
+            from ..io.checkpoint import save_growth_state
+            save_growth_state(checkpoint_path, st, draws)
         device_stats.append(summarize_device(st))
         hyphae.append(st.n_hyp)
         if verbose:
@@ -118,7 +141,7 @@ def run_growth(cfg: GrowthConfig, env: Environment | None = None,
             on_step(t, st)
     fetched = torch.stack(device_stats).tolist() if device_stats else []
     history: List[Dict] = []
-    for t, (v, n_hyp) in enumerate(zip(fetched, hyphae)):
+    for t, (v, n_hyp) in enumerate(zip(fetched, hyphae), start=start_step):
         row = _stats_row(v, n_hyp, cfg)
         row["step"] = t
         history.append(row)

@@ -307,3 +307,45 @@ def test_fixed_order_sums_equal_index_add_float64():
     mj = (jab & m.tree_fast.jump_tree).to(m.dtype)
     assert torch.equal(tf.chain_diag(cplan, mc, mj, free_chain, reg_pc),
                        _old_chain_diag(cplan, mc, mj, free_chain, reg_pc))
+
+
+def _old_node_sums(m, act, u):
+    """``apply_stiffness(..., 'scatter')`` and ``diag_blocks``' sums as
+    they were: two sequential index_add_ calls, over the first ends, then
+    over the second ends."""
+    from mycelium_tpu_torch.fea.elements import element_forces
+    f = element_forces(u, m.conn, m.geom, act)
+    ku = torch.zeros_like(u)
+    ku.index_add_(0, m.conn[:, 0], f)
+    ku.index_add_(0, m.conn[:, 1], -f)
+    n = m.geom.n
+    nnT = n[:, :, None] * n[:, None, :]
+    eye = torch.eye(3, dtype=n.dtype)
+    blk = (m.geom.k_ax[:, None, None] * nnT
+           + m.geom.k_bd[:, None, None] * (eye - nnT))
+    blk = blk * act[:, None, None].to(blk.dtype)
+    d = torch.zeros((m.n_nodes, 3, 3), dtype=blk.dtype)
+    d.index_add_(0, m.conn[:, 0], blk)
+    d.index_add_(0, m.conn[:, 1], blk)
+    return ku, d
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name,frac", [("forest900", 0.0),
+                                       ("forest2000", 0.05),
+                                       ("synthetic8000", 0.05)])
+def test_node_sums_equal_the_former_index_add(name, frac, dtype):
+    """The 'scatter' operator and the diagonal blocks (under block-Jacobi
+    and the sharded solver's preconditioner) by the model's node
+    incidence CSR, bit for bit the sequential index_add_ they replaced."""
+    from mycelium_tpu_torch.fea.model import apply_stiffness, diag_blocks
+    m, cfg, act, free = _case(name, frac, dtype)
+    ptr, ent = m.node_ptr.long(), m.node_ent.long()
+    assert ptr[-1] == 2 * m.n_elems and (ptr[1:] >= ptr[:-1]).all()
+    u = torch.as_tensor(np.random.default_rng(1).standard_normal(
+        (m.n_nodes, 3)), dtype=m.dtype)
+    ku, d = _old_node_sums(m, act, u)
+    assert torch.equal(apply_stiffness(m, u, act, "scatter"), ku)
+    eye = torch.eye(3, dtype=m.dtype)
+    ref = torch.where(free[:, None, None], d + cfg.reg * eye, eye)
+    assert torch.equal(diag_blocks(m, act, cfg, free), ref)

@@ -43,7 +43,7 @@ from mycelium_tpu_torch.scenes import petri_dish
 from torch_support import (all_levels, bound_sweep_pairs,  # noqa: F401
                            cuda_device, emulate_anast_by_cell,
                            fixed_order_sums,
-                           grip_for, level0,
+                           grip_for, level0, node_sums,
                            random_forest_mesh, rel_err, scan_args,
                            synthetic_mesh, tie_state)
 
@@ -185,9 +185,10 @@ def test_pcr_factor_launch_matches_cpu_plain(cuda_device):  # noqa: F811
 
 def test_fixed_order_sums_bit_equal_on_card(cuda_device):  # noqa: F811
     """P7: the chain diagonal's jump terms, the coarse matrix, the hybrid's
-    Schur corrections and its forward right-hand sides, and K2's outputs
-    on both PCR levels, twice on the card: bit-equal to each other and to
-    the CPU on copies of the same inputs (K2 there its plain version)."""
+    Schur corrections and its forward right-hand sides, K2's outputs on
+    both PCR levels, the diagonal blocks and the 'scatter' operator, twice
+    on the card: bit-equal to each other and to the CPU on copies of the
+    same inputs (K2 there its plain version)."""
     from mycelium_tpu_torch.fea.coarse import cluster_layout, n_basis
     m, cfg, act, free = _hybrid_case(cuda_device)
     ccfg = dataclasses.replace(cfg, precond="coarse", rtol=1e-5,
@@ -932,3 +933,135 @@ def test_cg_tree_solve_goes_through_k6(cuda_device):  # noqa: F811
     assert hyb.converged and counts["tree_cg"] == 0
     assert counts["pcr_factor"] > 0 and counts["pcr_apply"] > 0
     assert rel_err(hyb.x.cpu(), ref.x) <= 5e-4
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_node_sums_bit_equal_on_card(cuda_device, dtype):  # noqa: F811
+    """The diagonal blocks and the 'scatter' operator through
+    ``ordered_sum`` over the node incidence CSR: twice the same bits on the
+    card, and the CPU's."""
+    coords, conn = synthetic_mesh(8000)
+    cfg = FeaConfig(dtype=dtype, grip_length=grip_for(coords))
+    m = build_model(coords, conn, cfg, cuda_device)
+    gen = np.random.default_rng(4)
+    act = torch.as_tensor(gen.random(m.n_elems) > 0.05, device=cuda_device)
+    free = m.free_nodes
+    u = torch.as_tensor(gen.standard_normal((m.n_nodes, 3)),
+                        dtype=m.dtype, device=cuda_device)
+    reset_launch_counts()
+    one = node_sums(m, act, free, cfg.reg, u)
+    two = node_sums(m, act, free, cfg.reg, u)
+    torch.cuda.synchronize()
+    assert launch_counts()["ordered_sum"] == 4
+    ref = node_sums(moved(m, "cpu"), act.cpu(), free.cpu(), cfg.reg, u.cpu())
+    for n in ref:
+        assert torch.equal(one[n], two[n]), n
+        assert torch.equal(one[n].cpu(), ref[n]), n
+
+
+def test_ramp_resume_bit_equal_on_k6(cuda_device, tmp_path):  # noqa: F811
+    """A ramp on K6 split by a checkpoint and resumed equals the unsplit
+    run bit for bit: the warm start comes from the file, never from a
+    launch buffer."""
+    from mycelium_tpu_torch.fea import run_ramp
+    coords, conn = synthetic_mesh(2000)
+    cfg = hybrid_fea_config(n_steps=12, displacement_max=0.025,
+                            grip_length=grip_for(coords))
+    m = build_model(coords, conn, cfg, cuda_device)
+    assert m.tree_kernel
+    reset_launch_counts()
+    full = run_ramp(coords, conn, cfg, model=m)
+    assert launch_counts()["tree_cg"] >= 12
+    ckpt = str(tmp_path / "fea.npz")
+    run_ramp(coords, conn, cfg, model=m, checkpoint_path=ckpt,
+             checkpoint_every=7)
+    res = run_ramp(coords, conn, cfg, model=m, resume_from=ckpt)
+    assert (~full.active_record[-1]).any(), "no element fractured"
+    for f in ("stress_record", "active_record", "disp_record",
+              "force_disp", "cg_iters"):
+        np.testing.assert_array_equal(getattr(res, f), getattr(full, f),
+                                      err_msg=f)
+
+
+def test_growth_resume_bit_equal_on_k4(cuda_device, tmp_path):  # noqa: F811
+    """Growth split at step 20 of 40 and resumed through K4 equals the
+    unsplit run in every field (the generator's CUDA state travels in the
+    file)."""
+    from mycelium_tpu_torch.io.checkpoint import (GROWTH_FIELDS,
+                                                  load_growth_state)
+    cfg = dataclasses.replace(GROWTH_PRESETS["demo"], t_steps=40)
+    reset_launch_counts()
+    full, _, hist = run_growth(cfg, device=cuda_device)
+    assert launch_counts()["anast_scan"] == 40
+    ckpt = str(tmp_path / "growth.npz")
+    run_growth(dataclasses.replace(cfg, t_steps=20), device=cuda_device,
+               checkpoint_path=ckpt, checkpoint_every=20)
+    st, draws = load_growth_state(ckpt, cfg, cuda_device)
+    res, _, hist_r = run_growth(cfg, device=cuda_device, initial_state=st,
+                                draws=draws)
+    assert hist_r == hist[20:]
+    for k in GROWTH_FIELDS:
+        a, b = getattr(res, k), getattr(full, k)
+        assert (torch.equal(a, b) if torch.is_tensor(a) else a == b), k
+    with pytest.raises(ValueError, match="cuda generator"):
+        load_growth_state(ckpt, cfg, "cpu")
+
+
+@pytest.fixture
+def one_rank_group(cuda_device):  # noqa: F811
+    """A process group of this process alone on NCCL, destroyed after."""
+    from mycelium_tpu_torch.utils.dist import initialize_single
+    initialize_single(cuda_device)
+    yield cuda_device
+    torch.distributed.destroy_process_group()
+
+
+def test_one_rank_nccl_sharded_solve_matches_hybrid(one_rank_group):
+    """The sharded tree solve on one NCCL rank (K2, K3 and ordered_sum)
+    against the single-device hybrid of the same system: 1e-3 of max |x|
+    and iterations within ±1."""
+    from mycelium_tpu_torch.fea.shard import sharded_cg_solver
+    dev = one_rank_group
+    assert torch.distributed.get_backend() == "nccl"
+    coords, conn = synthetic_mesh(7375)
+    cfg = hybrid_fea_config(warm_start=False)
+    m = dataclasses.replace(build_model(coords, conn, cfg, dev),
+                            tree_kernel=False)
+    act = torch.ones(m.n_elems, dtype=torch.bool, device=dev)
+    x0 = torch.zeros((m.n_nodes, 3), device=dev)
+    ref = solve_displacement(m, act, 0.01, -0.01, x0, cfg)
+    reset_launch_counts()
+    res = sharded_cg_solver(m, cfg)(act, 0.01, -0.01, x0)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert res.converged and ref.converged
+    for k in ("pcr_factor", "pcr_apply", "ordered_sum"):
+        assert counts[k] > 0, counts
+    assert abs(res.iters - ref.iters) <= 1
+    assert rel_err(res.x.cpu(), ref.x.cpu()) <= 1e-3
+
+
+def test_cli_trace_names_a_cuda_kernel(cuda_device, tmp_path):  # noqa: F811
+    """``fea --trace DIR`` on the card writes a Chrome trace whose events
+    include a launch of one of the port's kernels (K6 or the hybrid's,
+    whichever route the preset takes)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from mycelium_tpu_torch.io import export_geometry
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    coords, conn = synthetic_mesh(7375)
+    d = tmp_path / "mesh"
+    export_geometry(str(d), coords[conn[:, 0]], coords[conn[:, 1]])
+    out = subprocess.run(
+        [sys.executable, "-m", "mycelium_tpu_torch.cli", "fea", str(d),
+         "--fea-steps", "3", "--trace", str(tmp_path / "trace")], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    kernels = {e.get("name", "") for e in events["traceEvents"]
+               if e.get("cat") == "kernel"}
+    ours = ("tree_cg", "pcr_", "chain_matvec", "ordered_sum")
+    assert any(o in k for k in kernels for o in ours), sorted(kernels)[:20]

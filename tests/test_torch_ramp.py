@@ -142,3 +142,97 @@ def test_cli_fea_writes_the_records(tmp_path):
                              text=True, timeout=300)
         assert out.returncode != 0
         assert "CUDA" in out.stderr
+
+
+def _run_cli(args):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return subprocess.run([sys.executable, "-m", "mycelium_tpu_torch.cli"]
+                          + args, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+
+
+def test_cli_grow_checkpoint_and_resume(tmp_path):
+    """``grow --checkpoint-every`` writes growth_checkpoint.npz, and
+    ``--resume`` goes on from it to the unsplit run's stats and mesh."""
+    flags = ["grow", "--device", "cpu", "--snapshots", "none"]
+    half, full, res = (tmp_path / d for d in ("half", "full", "res"))
+    for d, extra in ((half, ["--steps", "6", "--checkpoint-every", "3"]),
+                     (full, ["--steps", "12"])):
+        out = _run_cli(flags + ["--dir", str(d)] + extra)
+        assert out.returncode == 0, out.stderr
+    ckpt = half / "growth_checkpoint.npz"
+    assert int(np.load(ckpt)["step"]) == 6
+    out = _run_cli(flags + ["--dir", str(res), "--steps", "12", "--resume",
+                            str(ckpt)])
+    assert out.returncode == 0, out.stderr
+    for f in ("nodes.csv", "elements.csv"):
+        assert filecmp.cmp(full / f, res / f, shallow=False), f
+    stats = [(d / "mycelium_growth_stats.csv").read_text().splitlines()
+             for d in (half, res, full)]
+    assert stats[0] + stats[1][1:] == stats[2]
+
+
+def _fea_mesh(tmp_path):
+    coords, conn = random_forest_mesh(300, 6, 9)
+    d = tmp_path / "mesh"
+    export_geometry(str(d), coords[conn[:, 0]], coords[conn[:, 1]])
+    return d, ["--device", "cpu", "--fea-steps", "6", "--grip", "0.1",
+               "--disp-max", "0.02"]
+
+
+def test_cli_fea_checkpoint_and_resume(tmp_path):
+    """``fea --fea-checkpoint-every`` writes fea_checkpoint.npz;
+    ``--fea-resume`` from it writes the unsplit run's records."""
+    d, flags = _fea_mesh(tmp_path)
+    out = _run_cli(["fea", str(d)] + flags)
+    assert out.returncode == 0, out.stderr
+    os.rename(d / "fea_results", tmp_path / "unsplit")
+    out = _run_cli(["fea", str(d), "--fea-checkpoint-every", "4"] + flags)
+    assert out.returncode == 0, out.stderr
+    ckpt = tmp_path / "at4.npz"
+    os.rename(d / "fea_checkpoint.npz", ckpt)
+    assert int(np.load(ckpt)["step"]) == 4
+    out = _run_cli(["fea", str(d), "--fea-resume", str(ckpt)] + flags)
+    assert out.returncode == 0, out.stderr
+    for f in CSVS:
+        assert filecmp.cmp(d / "fea_results" / f, tmp_path / "unsplit" / f,
+                           shallow=False), f
+
+
+def test_cli_fea_sharded_and_trace(tmp_path):
+    """``fea --sharded --f64`` (a group of this process alone) writes the
+    records of ``run_ramp`` (each within 1e-6 of its largest entry, the
+    preset's rtol 1e-8 apart; the active masks equal); ``--trace DIR``
+    writes a Chrome trace with events; ``--sharded 2`` in a one-rank group
+    stops."""
+    d, flags = _fea_mesh(tmp_path)
+    flags = flags + ["--f64"]
+    out = _run_cli(["fea", str(d)] + flags)
+    assert out.returncode == 0, out.stderr
+    os.rename(d / "fea_results", tmp_path / "loop")
+    trace_dir = tmp_path / "trace"
+    out = _run_cli(["fea", str(d), "--sharded", "--trace", str(trace_dir)]
+                   + flags)
+    assert out.returncode == 0, out.stderr
+    import json
+    events = json.loads((trace_dir / "trace.json").read_text())
+    assert len(events["traceEvents"]) >= 1
+    for f in ("active_elements.csv",):
+        assert filecmp.cmp(d / "fea_results" / f, tmp_path / "loop" / f,
+                           shallow=False), f
+    for f in ("node_displacements.csv", "stress_record.csv",
+              "force_displacement.csv"):
+        a, b = [np.genfromtxt(x / f, delimiter=",", skip_header=1)
+                for x in (tmp_path / "loop", d / "fea_results")]
+        assert np.abs(b - a).max() <= 1e-6 * np.abs(a).max(), f
+    out = _run_cli(["fea", str(d), "--sharded", "2"] + flags)
+    assert out.returncode != 0 and "process group has 1" in out.stderr
+
+
+def test_dryrun_multichip_on_two_gloo_ranks():
+    out = subprocess.run([sys.executable, "-m", "mycelium_tpu_torch.dryrun",
+                          "2"], cwd=ROOT, env=dict(os.environ,
+                                                   PYTHONPATH=ROOT),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "dryrun_multichip OK on 2 ranks (gloo)" in out.stdout

@@ -400,9 +400,11 @@ def fixed_order_sums(model, act, free, coarse_plan, reg, reg_pc, rp):
     over ``coarse_plan``, the hybrid factorization's Schur corrections
     (dacc), the dense tail's matrix, and its forward sweep's right-hand
     sides (racc: each level's K3 solution, level by level through the
-    unbound K3, and the dense tail's right-hand side); and each PCR level's
+    unbound K3, and the dense tail's right-hand side); each PCR level's
     K2 outputs (al, be, dinv, xc), whose inputs carry the earlier levels'
-    Schur corrections and fill edges. K2 goes through ``model.pcr_launch``;
+    Schur corrections and fill edges; and the node sums (``node_sums``:
+    the diagonal blocks and the 'scatter' operator on rp's transpose).
+    K2 goes through ``model.pcr_launch``;
     a model without one (a CPU copy) gets a launch built on its device,
     which runs the plain version there."""
     from mycelium_tpu_torch.fea.chain import plan_active_masks_bool
@@ -437,7 +439,19 @@ def fixed_order_sums(model, act, free, coarse_plan, reg, reg_pc, rp):
     ys, out["racc tail"] = tree_forward_sweep(
         tree, TreeFactor(alphas=al, betas=be, dinvs=dinv, att_b=att_b), rp)
     out.update({f"racc level {i}": y for i, y in enumerate(ys)})
+    out.update(node_sums(model, act, free, reg, rp.T.contiguous()))
     return {k: v.clone() for k, v in out.items()}
+
+
+def node_sums(model, act, free, reg, u):
+    """The node-space sums by the model's node incidence CSR: the 3x3
+    diagonal blocks (block-Jacobi, the sharded solver's preconditioner)
+    and the 'scatter' operator's K·u for the (N, 3) field ``u``."""
+    import types
+    from mycelium_tpu_torch.fea.model import apply_stiffness, diag_blocks
+    return {"diag_blocks": diag_blocks(model, act,
+                                       types.SimpleNamespace(reg=reg), free),
+            "scatter K.u": apply_stiffness(model, u, act, "scatter")}
 
 
 class JaxDraws:
@@ -453,6 +467,15 @@ class JaxDraws:
         self.jax = jax
         self.key = jax.random.PRNGKey(seed)
         self.device = device
+
+    @classmethod
+    def from_key(cls, key, device="cpu"):
+        """The draws that go on from a JAX PRNG key: the ``key`` of a
+        state the JAX package saved (``io/checkpoint.py``)."""
+        import jax.numpy as jnp
+        draws = cls(0, device)
+        draws.key = jnp.asarray(np.asarray(key), dtype=jnp.uint32)
+        return draws
 
     def _jd(self, dtype):
         import jax.numpy as jnp
@@ -751,3 +774,139 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def port_config(cfg):
+    """The port's FeaConfig with the fields of ``cfg`` (a JAX package
+    FeaConfig: the port's copy has the same fields), for code that runs
+    where the JAX package is not imported (spawned ranks)."""
+    import dataclasses
+    from mycelium_tpu_torch.config import FeaConfig
+    return FeaConfig(**dataclasses.asdict(cfg))
+
+
+def _rank_main(rank, n, store, out_dir, fn, args):
+    import os
+    torch.set_num_threads(1)
+    from mycelium_tpu_torch.utils.dist import initialize_distributed
+    initialize_distributed(f"file://{store}", n, rank, device="cpu")
+    try:
+        out = fn(*args)
+        if out is not None:
+            np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_ranks(n, fn, *args, tmp_dir, timeout=240.0):
+    """Run ``fn(*args)`` on ``n`` spawned CPU ranks joined by gloo over a
+    ``file://`` store in a fresh directory under ``tmp_dir`` (no port is
+    opened); each rank's returned dict of arrays comes back, in rank
+    order (None for a rank that returned nothing). A rank that fails
+    raises here; ranks still running after ``timeout`` seconds are
+    killed and TimeoutError raised."""
+    import os
+    import tempfile
+    import time
+    d = tempfile.mkdtemp(dir=str(tmp_dir))
+    ctx = torch.multiprocessing.start_processes(
+        _rank_main, args=(n, os.path.join(d, "store"), d, fn, args),
+        nprocs=n, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=1.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{n} ranks still running after "
+                                   f"{timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    out = []
+    for r in range(n):
+        p = os.path.join(d, f"rank{r}.npz")
+        out.append(dict(np.load(p)) if os.path.exists(p) else None)
+    return out
+
+
+def shard_solve_rank(coords, conn, cfg, active, dy, anchored=None,
+                     with_factor=False):
+    """One rank of a sharded solve of (coords, conn) on the CPU: x,
+    iterations and the verdict, and with ``with_factor`` the same solve
+    with a precomputed factorization (``compute_tree_factor``)."""
+    from mycelium_tpu_torch.fea import build_model
+    from mycelium_tpu_torch.fea.shard import sharded_cg_solver
+    from mycelium_tpu_torch.fea.solve import compute_tree_factor
+    model = build_model(coords, conn, cfg, "cpu")
+    act = torch.as_tensor(active)
+    anch = None if anchored is None else torch.as_tensor(anchored)
+    x0 = torch.zeros((model.n_nodes, 3), dtype=model.dtype)
+    solve = sharded_cg_solver(model, cfg)
+    res = solve(act, dy, -dy, x0, anch)
+    out = dict(x=res.x.numpy(), iters=np.asarray(res.iters),
+               converged=np.asarray(res.converged))
+    if with_factor:
+        fac = compute_tree_factor(model, act, cfg, anch)
+        res2 = solve(act, dy, -dy, x0, anch, fac)
+        out.update(x_fac=res2.x.numpy(), iters_fac=np.asarray(res2.iters))
+    return out
+
+
+RAMP_RECORDS = ("stress_record", "active_record", "disp_record",
+                "force_disp", "cg_iters")
+
+
+def shard_ramp_rank(coords, conn, cfg, kw=None):
+    """One rank of ``run_ramp_sharded`` on the CPU: its records (``kw``:
+    the checkpoint arguments)."""
+    kw = kw or {}
+    from mycelium_tpu_torch.fea.ramp import run_ramp_sharded
+    res = run_ramp_sharded(coords, conn, cfg, device="cpu", **kw)
+    return {k: getattr(res, k) for k in RAMP_RECORDS}
+
+
+def shard_cases_rank(cases):
+    """One rank of the sharded solves of ``cases`` (name -> coords, conn,
+    cfg, active, dy, anchored, with_factor) on the CPU: per case its x and
+    iterations, and with a factor the same solve with a precomputed
+    factorization."""
+    out = {}
+    for name, (coords, conn, cfg, active, dy, anchored, fac) in \
+            cases.items():
+        res = shard_solve_rank(coords, conn, cfg, active, dy, anchored, fac)
+        assert bool(res["converged"]), name
+        out.update({f"{name}/{k}": v for k, v in res.items()})
+    return out
+
+
+def coordinator_io_rank(coords, conn, cfg, out_dir):
+    """One rank of the coordinator-only IO check: a growth checkpoint, a
+    sharded ramp with its checkpoint and the records' CSVs, each to a
+    path named by the rank; only rank 0's may exist afterwards."""
+    import os
+    from mycelium_tpu_torch.config import GrowthConfig
+    from mycelium_tpu_torch.growth import run_growth
+    from mycelium_tpu_torch.io import write_fea_records
+    from mycelium_tpu_torch.fea.ramp import run_ramp_sharded
+    from mycelium_tpu_torch.utils.dist import (coordinator_barrier,
+                                               is_coordinator,
+                                               process_count, process_index)
+    assert process_count() == 2
+    rank = process_index()
+    gcfg = GrowthConfig(t_steps=2, max_segments=64, max_hyphae=32,
+                        h0_per_point=1, inoculum_nx=1, inoculum_ny=1)
+    run_growth(gcfg, device="cpu",
+               checkpoint_path=os.path.join(out_dir,
+                                            f"growth_rank{rank}.npz"),
+               checkpoint_every=1)
+    res = run_ramp_sharded(coords, conn, cfg, device="cpu",
+                           checkpoint_path=os.path.join(
+                               out_dir, f"fea_rank{rank}.npz"),
+                           checkpoint_every=2)
+    if is_coordinator():
+        write_fea_records(os.path.join(out_dir, f"csv_rank{rank}"),
+                          res.stress_record, res.active_record,
+                          res.disp_record, res.force_disp)
+    coordinator_barrier("records")
+    return {"rank": np.asarray(rank),
+            "coordinator": np.asarray(is_coordinator())}
