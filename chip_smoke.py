@@ -86,9 +86,25 @@ fails:
    preset (2^21 segment slots) for GROWTH_STEPS steps, K4 launched once
    per step;
 10. K4 against its plain version on the grown xlarge state and on the
-   tie-heavy state (``tests/torch_support.py::tie_state``): bit-equal;
+   tie-heavy states (``tests/torch_support.py::tie_state`` and, in 3D,
+   ``tie_state_3d``: ties in different z cells and ranks of one column):
+   bit-equal;
 11. the demo preset grown twice with the same draws, through K4 and through
    the plain scan: equal states every 25 steps and at the end;
+11a. 3D growth, counts set to 0 before and read after: the reference 3D
+   configuration (``growth_3d_config``, gz 5) for its 25 steps and for 150
+   steps at 2^16 / 2^15 slots, K4 once a step, no overflow; K4 against
+   plain on the 150-step state, timed with its bound; the 150-step run
+   and the 3D configuration at voxel 0.05 (gz 7, the 9-cell window) grown
+   again through the plain scan: equal every 25 steps;
+11b. the 9-cell window at full width, counts set to 0 before and read
+   after: the xlarge preset at voxel 0.05 (g 704, 495,616 cells, a grid
+   of 31.7 M entries) for GROWTH_STEPS steps, no overflow; K4 against
+   plain on its state, timed with its bound;
+11c. the 3D pipeline, counts set to 0 before and read after: the 150-step
+   3D network exported, read back, a cold solve (float64 residual check)
+   and the 40-step pull test on its route (K6), every step converged,
+   the records written;
 12. the coupled pipeline at the medium preset with the fast solver preset,
    counts set to 0 before and read after: grow -> mesh -> model on the
    card -> cold solve (float64 residual check) -> 40-step ramp, the
@@ -123,7 +139,7 @@ none it exits non-zero and prints no result. No JAX is imported.
 
 Time: the whole run must end within 1200 s, the kernels' build included;
 phases 4 and 8 (K5 and the sweep) have a budget of 90 s of it. On an
-H100 the run took 118 s with phases 13 and 14.
+H100 the run took 150 s with phases 11a-11c.
 """
 
 from __future__ import annotations
@@ -758,60 +774,85 @@ def async_check(coords, conn, cfg, model, device, loop, loop_wall) -> float:
     return wall
 
 
-def grow_full_width(preset: str, steps: int, device):
-    """Phase 9: growth at the preset's full width. K4 must launch once per
-    step; no capacity may overflow."""
+def grow_run(label: str, cfg, device):
+    """Growth at one configuration on ``device``: K4 must launch once per
+    step; no capacity may overflow. Returns (final state, readings)."""
     import torch
-    from mycelium_tpu_torch.config import GROWTH_PRESETS
     from mycelium_tpu_torch.growth import run_growth
+    from mycelium_tpu_torch.growth.neighbors import check_layout
     from mycelium_tpu_torch.growth.step import StepSyncs
-    from mycelium_tpu_torch.kernels import launch_counts, reset_launch_counts
-    cfg = dataclasses.replace(GROWTH_PRESETS[preset], t_steps=steps)
+    from mycelium_tpu_torch.kernels import launch_counts
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     syncs = StepSyncs()
-    reset_launch_counts()
+    before = launch_counts()["anast_scan"]
     t0 = time.perf_counter()
     st, _, hist = run_growth(cfg, device=device, syncs=syncs)
     sync(device)
     wall = time.perf_counter() - t0
-    counts = launch_counts()
+    launches = launch_counts()["anast_scan"] - before
     mem = torch.cuda.max_memory_allocated() if device.type == "cuda" else 0
     final = hist[-1]
-    log(f"growth {preset}: {steps} steps in {wall:.3f} s "
-        f"({steps / wall:.3f} steps/s, init included), "
+    steps = cfg.t_steps
+    layout = check_layout(cfg)
+    log(f"{label}: {steps} steps in {wall:.3f} s "
+        f"({steps / wall:.3f} steps/s, init included), layout {layout}, "
         f"{cfg.max_segments} slots, {final['segments']} segments, "
         f"{final['hyphae']} hyphae, {final['anastomosed']} anastomosed, "
         f"total length {final['total_length_mm']:.3f} mm, overflow "
         f"{bool(st.overflow)}, host syncs per step {syncs.per_step:.3f}, "
-        f"peak device memory {mem / 2**20:.1f} MiB, launches {counts}")
+        f"peak device memory {mem / 2**20:.1f} MiB, K4 launches {launches}")
     if bool(st.overflow):
-        raise AssertionError(f"growth {preset}: capacity overflow")
-    if device.type == "cuda" and counts["anast_scan"] != steps:
-        raise AssertionError(f"K4 launched {counts['anast_scan']} times "
-                             f"in {steps} steps")
-    return st, cfg, dict(steps=steps, wall_s=wall, steps_per_s=steps / wall,
-                         segments=final["segments"], hyphae=final["hyphae"],
-                         total_length_mm=final["total_length_mm"],
-                         overflow=bool(st.overflow),
-                         syncs_per_step=syncs.per_step, peak_mib=mem / 2**20,
-                         launches=counts["anast_scan"])
+        raise AssertionError(f"{label}: capacity overflow")
+    if device.type == "cuda" and launches != steps:
+        raise AssertionError(f"{label}: K4 launched {launches} times in "
+                             f"{steps} steps")
+    return st, dict(steps=steps, wall_s=wall, steps_per_s=steps / wall,
+                    g=layout.g, gz=layout.gz, window=layout.window,
+                    segments=final["segments"], hyphae=final["hyphae"],
+                    anastomosed=final["anastomosed"],
+                    total_length_mm=final["total_length_mm"],
+                    overflow=bool(st.overflow),
+                    syncs_per_step=syncs.per_step, peak_mib=mem / 2**20,
+                    launches=launches)
 
 
-def compare_anast(st, cfg, device) -> dict:
-    """Phase 10: K4 against its plain version on a grown state, with the
-    tables the step's query builds."""
+def grow_full_width(preset: str, steps: int, device, **overrides):
+    """Phase 9 (and 11b, the 9-cell window's run): growth at the preset's
+    full width."""
+    from mycelium_tpu_torch.config import GROWTH_PRESETS
+    cfg = dataclasses.replace(GROWTH_PRESETS[preset], t_steps=steps,
+                              **overrides)
+    label = f"growth {preset}" + "".join(f", {k} {v}"
+                                         for k, v in overrides.items())
+    st, row = grow_run(label, cfg, device)
+    return st, cfg, row
+
+
+def growth_3d_path(device):
+    """Phase 11a: the reference 3D deployment (``growth_3d_config``: six
+    sites in a dish with z-walls, a grid of gz = 5), for its own 25 steps,
+    then for 150 steps at 2^16 segment and 2^15 hypha slots. Returns (the
+    150-step state, its configuration, the two runs' readings)."""
+    from mycelium_tpu_torch.config import growth_3d_config
+    _, short = grow_run("growth 3D, 25 steps", growth_3d_config(), device)
+    cfg = growth_3d_config(t_steps=150, max_segments=1 << 16,
+                           max_hyphae=1 << 15)
+    st, long = grow_run("growth 3D, 150 steps", cfg, device)
+    return st, cfg, {"25": short, "150": long}
+
+
+def anast_reading(st, cfg, device, label: str, row: dict) -> dict:
+    """K4 against its plain version on a grown state, with the tables the
+    step's query builds, timed beside the plain version and its bound;
+    fills ``row`` (the device time is read in the traced tail)."""
     import torch
-    from mycelium_tpu_torch.growth import neighbors as nb
     from mycelium_tpu_torch.kernels import anast_scan, anast_scan_plain
+    from mycelium_tpu_torch.kernels.anast import window_offsets
     support = shared_checks()
-    g = nb.check_layout(cfg)
-    grid, _ = nb.grid_insert_finalized(st.grid, st, cfg)
-    tb = nb.tip_tables(st, cfg)
-    ov_count, cell = tb.ov_count, tb.scan_cell
-    args = (st.tip, cell, st.start, st.end, grid.ids, grid.geo, grid.count,
-            cfg.max_per_cell, tb.ov_slot, tb.ov_start, ov_count, g,
-            st.capacity, tb.tips)
+    args = support.scan_args(st, cfg)
+    (_, cell, _, _, gids, ggeo, gcount, _, _, _, ov_count, g, N, _, gz,
+     window) = args
     k = anast_scan(*args)
     p = anast_scan_plain(*args)
     sync(device)
@@ -822,54 +863,93 @@ def compare_anast(st, cfg, device) -> dict:
     rows = cell >= 0
     err = float(torch.where(k[0] == p[0], 0.0, (k[0] - p[0]).abs()).max())
     n_in = int(rows.sum())
-    hits = int((k[2][rows] < st.capacity).sum())
-    log(f"K4 anast_scan: H={cell.shape[0]} tips in the table {n_in}, with a "
-        f"candidate {hits}, grid entries {int(grid.count.sum())}, overlay "
-        f"entries {int(ov_count.sum())}; bit-equal to plain: {equal} "
+    hits = int((k[2][rows] < N).sum())
+    log(f"K4 anast_scan, {label} (g {g}, gz {gz}, window {window}): "
+        f"H={cell.shape[0]} tips in the table {n_in}, with a candidate "
+        f"{hits}, a grid of {gids.numel()} entries ({nbytes(ggeo) / 2**30:.3f}"
+        f" GiB of geometry, {nbytes(gids) / 2**20:.1f} MiB of ids), grid "
+        f"entries {int(gcount.sum())}, overlay entries "
+        f"{int(ov_count.sum())}; bit-equal to plain: {equal} "
         f"(max |d2 diff| {err:.3e})")
     if not equal:
-        raise AssertionError("K4 disagrees with its plain version")
-    # the tie-heavy state: duplicated segments, lattice points at bitwise
-    # equal distances from candidates in different cells, sources and ranks
-    tcfg, tst = support.tie_state(device)
-    targs = support.scan_args(tst, tcfg)
-    tie_equal = all(torch.equal(a, b) for a, b in
-                    zip(anast_scan(*targs), anast_scan_plain(*targs)))
-    log(f"K4 anast_scan on the tie-heavy state "
-        f"({int((targs[1] >= 0).sum())} tips): bit-equal to plain: "
-        f"{tie_equal}")
-    if not tie_equal:
-        raise AssertionError("K4 disagrees with its plain version on the "
-                             "tie-heavy state")
+        raise AssertionError(f"K4 disagrees with its plain version: {label}")
     ms = timed_ms(lambda: anast_scan(*args), device, 50)
     pms = timed_ms(lambda: anast_scan_plain(*args), device, 2)
     # the data the function needs: every hypha's cell, each tip's slot and
-    # end point, the entries of the distinct visited cells once (grid: a
-    # 4-byte id and 28 bytes of a, ab, 1/|ab|^2, not the layout's pad;
-    # overlay: a 4-byte slot and its 24 bytes of start and end) and their
-    # three counts and offsets, the outputs
-    M = g * g
-    cx, cy = cell[rows].long() // g, cell[rows].long() % g
-    cells, pairs = [], 0
-    for dr, dc in ((-1, -1), (-1, 0), (0, -1), (0, 0)):
-        x, y = cx + dr, cy + dc
-        ok = (x >= 0) & (y >= 0)
-        c = (x * g + y)[ok]
-        cells.append(c)
-        pairs += int(grid.count[c].sum()) + int(ov_count[c].sum())
-    uc = torch.unique(torch.cat(cells)) if cells else cell[:0].long()
+    # end point, the entries of the distinct visited cells once (every z
+    # cell of each window column; grid: a 4-byte id and 28 bytes of a, ab,
+    # 1/|ab|^2, not the layout's pad; overlay: a 4-byte slot and its 24
+    # bytes of start and end) and their three counts and offsets, the
+    # outputs; a distance pair per tip and candidate of its window
+    z = torch.arange(gz, device=cell.device)
+
+    def window_cells(table_cells):
+        col = table_cells // gz
+        cx, cy = col // g, col % g
+        out = []
+        for dx, dy in window_offsets(window):
+            x, y = cx + dx, cy + dy
+            ok = (x >= 0) & (y >= 0) & (x < g) & (y < g)
+            out.append(((x * g + y)[ok][:, None] * gz + z).reshape(-1))
+        return torch.cat(out)
+
+    def entries(c):
+        return int(gcount[c].sum()) + int(ov_count[c].sum())
+
+    pairs = entries(window_cells(cell[rows].long()))
+    # what the warps load: each occupied cell of the tip table (one warp)
+    # reads its window's candidates once for all its tips; in 3D the gz
+    # cells of one column read the same candidates again
+    loads = entries(window_cells(torch.unique(cell[rows].long())))
+    uc = torch.unique(window_cells(cell[rows].long()))
     read = (cell.shape[0] * 4 + n_in * 16 + uc.numel() * 12
-            + int(grid.count[uc].sum()) * 32 + int(ov_count[uc].sum()) * 28)
+            + int(gcount[uc].sum()) * 32 + int(ov_count[uc].sum()) * 28)
     b4 = bound(read + cell.shape[0] * 12, pairs * 27)
-    log(f"K4 time call {ms:.4f} ms (plain {pms:.4f} ms, bound {b4[0]:.5f} ms by "
-        f"{b4[1]}: {read / 2**20:.2f} MiB read, {pairs} distance pairs, "
-        f"{uc.numel()} of {M} cells)")
+    log(f"K4 time, {label}: call {ms:.4f} ms (plain {pms:.4f} ms, bound "
+        f"{b4[0]:.5f} ms by {b4[1]}: {read / 2**20:.2f} MiB read, {pairs} "
+        f"distance pairs, {uc.numel()} of {g * g * gz} cells; the warps "
+        f"load {loads} candidates, {loads / max(entries(uc), 1):.2f}x the "
+        f"{entries(uc)} distinct ones)")
+    row.update(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b4[0],
+               bound_by=b4[1], tips=n_in, pairs=pairs, read_mib=read / 2**20,
+               candidate_loads=loads, distinct_candidates=entries(uc))
+    defer_device_ms(f"K4, {label}", row, lambda: anast_scan(*args), 50)
+    return row
+
+
+def tie_checks(device) -> None:
+    """K4 against its plain version on the tie-heavy states
+    (``tests/torch_support.py``): duplicated segments, lattice points at
+    bitwise-equal distances from candidates in different cells, sources
+    and ranks, and in 3D in different z cells and ranks of one column,
+    where only the position order decides. Bit-equal."""
+    import torch
+    from mycelium_tpu_torch.kernels import anast_scan, anast_scan_plain
+    support = shared_checks()
+    for name, make in (("2D", support.tie_state),
+                       ("3D", support.tie_state_3d)):
+        tcfg, tst = make(device)
+        targs = support.scan_args(tst, tcfg)
+        equal = all(torch.equal(a, b) for a, b in
+                    zip(anast_scan(*targs), anast_scan_plain(*targs)))
+        log(f"K4 anast_scan on the {name} tie-heavy state "
+            f"({int((targs[1] >= 0).sum())} tips, gz {targs[-2]}): "
+            f"bit-equal to plain: {equal}")
+        if not equal:
+            raise AssertionError("K4 disagrees with its plain version on "
+                                 f"the {name} tie-heavy state")
+
+
+def compare_anast(st, cfg, device, preset: str) -> dict:
+    """Phase 10: K4 against its plain version on the grown state of the
+    growth path (the 2D corner window) and on the tie-heavy states: the
+    kernel's row."""
     row = dict(name="anast_scan", route="cuda",
                source="mycelium_tpu_torch/kernels/csrc/anast_scan.cu",
                replaces="mycelium_tpu/growth/pallas_anast.py:59",
-               max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b4[0],
-               bound_by=b4[1], library_ms=None)
-    defer_device_ms("K4", row, lambda: anast_scan(*args), 50)
+               library_ms=None)
+    anast_reading(st, cfg, device, f"2D corner window, {preset}", row)
+    tie_checks(device)
     return row
 
 
@@ -886,20 +966,20 @@ def grow_plain_scan(cfg, device, on_step):
     walls = ea.wall_center.shape[0] > 0
     for t in range(cfg.t_steps):
         st = growth_step(st, ea, cfg, draws.step(cfg.max_hyphae,
-                                                 st.sub.dtype, walls),
+                                                 st.sub.dtype, walls,
+                                                 cfg.three_d),
                          scan=anast_scan_plain)
         on_step(t, st)
     return st
 
 
-def trajectory_check(preset: str, device, every: int = 25):
-    """Phase 11: grow the preset twice with the same draws, through K4
-    (``run_growth``) and through its plain version; the states and their
-    stats must be equal every ``every`` steps and at the end."""
+def trajectory_check(label: str, cfg, device, every: int = 25):
+    """Phase 11 (and 11a's): grow ``cfg`` twice with the same
+    draws, through K4 (``run_growth``) and through its plain version; the
+    states and their stats must be equal every ``every`` steps and at the
+    end."""
     import torch
-    from mycelium_tpu_torch.config import GROWTH_PRESETS
     from mycelium_tpu_torch.growth import run_growth, summarize
-    cfg = GROWTH_PRESETS[preset]
     fields = ("start", "end", "theta", "phi", "sub", "state", "prev",
               "hypha", "tip", "env_e", "overflow")
 
@@ -918,14 +998,82 @@ def trajectory_check(preset: str, device, every: int = 25):
     same = snaps_k.keys() == snaps_p.keys() and all(
         (torch.equal(a, b) if torch.is_tensor(a) else a == b)
         for t in snaps_k for a, b in zip(snaps_k[t], snaps_p[t]))
-    log(f"trajectory {preset}: {cfg.t_steps} steps through K4 and through "
+    log(f"trajectory {label}: {cfg.t_steps} steps through K4 and through "
         f"the plain scan, compared at steps {sorted(snaps_k)}: equal "
         f"{same}; {hist_k[-1]['segments']} segments, "
         f"{hist_k[-1]['anastomosed']} anastomosed, overflow "
         f"{bool(st_k.overflow)} ({time.perf_counter() - t0:.2f} s)")
     if not same or bool(st_k.overflow):
-        raise AssertionError(f"trajectory {preset}: the K4 and plain runs "
+        raise AssertionError(f"trajectory {label}: the K4 and plain runs "
                              "differ or overflowed")
+
+
+def pipeline_3d(device, tmp) -> dict:
+    """Phase 11c: the 3D pipeline. The reference 3D configuration grown for
+    150 steps (its own 25 steps give a network of ~1,600 nodes that the
+    grips hold whole: nothing is left to solve), exported to
+    nodes.csv/elements.csv, read back, and the 40-step pull test on the
+    card on the coupled pipeline's solver configuration through the route
+    ``solve_route`` picks: a cold solve with the float64 residual check,
+    every ramp step converged (``run_ramp`` refuses one that is not), the
+    records written."""
+    from mycelium_tpu_torch.config import growth_3d_config, tuned_fea_config
+    from mycelium_tpu_torch.fea import run_ramp
+    from mycelium_tpu_torch.fea.solve import solve_route
+    from mycelium_tpu_torch.growth import run_growth
+    from mycelium_tpu_torch.growth.export import export_state_geometry
+    from mycelium_tpu_torch.io import read_mesh_dir, write_fea_records
+    gcfg = growth_3d_config(t_steps=150, max_segments=1 << 16,
+                            max_hyphae=1 << 15)
+    t = {}
+    t0 = time.perf_counter()
+    st, _, hist = run_growth(gcfg, device=device)
+    sync(device)
+    t["growth_s"] = time.perf_counter() - t0
+    out = os.path.join(tmp, "sim_3d")
+    t0 = time.perf_counter()
+    export_state_geometry(st, out)
+    coords, conn = read_mesh_dir(out)
+    t["mesh_s"] = time.perf_counter() - t0
+    z_extent = float(coords[:, 2].max() - coords[:, 2].min())
+    cfg = tuned_fea_config(n_steps=40, rtol=RTOL)
+    model = timed_build(coords, conn, cfg, device, "3D pipeline")
+    route = solve_route(model, cfg)
+    ms, iters = cold_solve(model, coords, conn,
+                           dataclasses.replace(cfg, warm_start=False),
+                           device, "3D pipeline cold solve", 3,
+                           limit=K6_LIMIT if route == "tree_cg"
+                           else STALL_LIMIT)
+    t0 = time.perf_counter()
+    res = run_ramp(coords, conn, cfg, model=model)
+    sync(device)
+    t["ramp_s"] = time.perf_counter() - t0
+    fea_dir = os.path.join(out, "fea_results")
+    write_fea_records(fea_dir, res.stress_record, res.active_record,
+                      res.disp_record, res.force_disp)
+    n_rec = int(res.force_disp.shape[0])
+    with open(os.path.join(fea_dir, "force_displacement.csv")) as f:
+        fd_rows = len(f.read().splitlines()) - 1
+    fractured = int((~res.active_record[-1]).sum())
+    log(f"3D pipeline: {hist[-1]['segments']} segments -> "
+        f"{coords.shape[0]} nodes ({z_extent:.4f} mm in z), {model.n_dof} "
+        f"DOF, route {route}; cold solve {iters} iterations, median "
+        f"{ms:.3f} ms; ramp {n_rec} steps recorded, every one converged, "
+        f"{int(res.cg_iters.sum())} CG iterations, {fractured} elements "
+        f"fractured; {sorted(os.listdir(fea_dir))} written "
+        f"({fd_rows} force rows); stage wall times "
+        + ", ".join(f"{k} {v:.3f}" for k, v in t.items()))
+    if z_extent <= 1e-3:
+        raise AssertionError("3D pipeline: the mesh is flat")
+    if device.type == "cuda" and route != "tree_cg":
+        raise AssertionError(f"3D pipeline: route {route}, not K6")
+    if n_rec < 2 or fd_rows != n_rec or iters < 1:
+        raise AssertionError(f"3D pipeline: {n_rec} steps recorded, "
+                             f"{fd_rows} rows written, {iters} iterations")
+    return dict(segments=hist[-1]["segments"], nodes=int(coords.shape[0]),
+                dof=model.n_dof, route=route, cold_iters=iters, cold_ms=ms,
+                ramp_steps=n_rec, ramp_iters=int(res.cg_iters.sum()),
+                fractured=fractured, **t)
 
 
 def k5_config(**overrides):
@@ -2123,7 +2271,8 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     P7's check there holds K2 on a level with Schur corrections."""
     import torch
 
-    from mycelium_tpu_torch.config import hybrid_fea_config
+    from mycelium_tpu_torch.config import (GROWTH_PRESETS, growth_3d_config,
+                                           hybrid_fea_config)
     from mycelium_tpu_torch.kernels import build, launch_counts
     from mycelium_tpu_torch.kernels import reset_launch_counts
     from mycelium_tpu_torch.meshes import synthetic_mesh
@@ -2270,11 +2419,43 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
         f"({time.perf_counter() - t0:.2f} s)")
 
     # the growth path at full width
+    reset_launch_counts()
     st, gcfg, growth = grow_full_width(big_growth, growth_steps, device)
     grow_counts = launch_counts()
-    rows.append(compare_anast(st, gcfg, device))
+    k4_row = compare_anast(st, gcfg, device, big_growth)
+    rows.append(k4_row)
     del st
-    trajectory_check(trajectory, device)
+    trajectory_check(trajectory, GROWTH_PRESETS[trajectory], device)
+
+    # 3D growth, the reference deployment, counts set to 0 around its two
+    # runs; K4 on the 150-step state and the two runs again through the
+    # plain scan
+    import tempfile
+    reset_launch_counts()
+    st3, cfg3, growth3d = growth_3d_path(device)
+    g3_counts = launch_counts()
+    k4_row["layouts"] = {"3d": anast_reading(st3, cfg3, device,
+                                             "3D, 150 steps", {})}
+    del st3
+    trajectory_check("3D, 150 steps", cfg3, device)
+    # the 9-cell window at full width: the xlarge preset at voxel 0.05
+    reset_launch_counts()
+    st9, cfg9, growth9 = grow_full_width(big_growth, growth_steps, device,
+                                         voxel_size=0.05)
+    g9_counts = launch_counts()
+    k4_row["layouts"]["9cell"] = anast_reading(
+        st9, cfg9, device, f"9-cell window, {big_growth}", {})
+    del st9
+    trajectory_check("3D, 9-cell window", growth_3d_config(voxel_size=0.05),
+                     device)
+    # the 3D pipeline: grow, mesh, read back, the pull test
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        pipe3d = pipeline_3d(device, tmp)
+    sync(device)
+    p3_counts = launch_counts()
+    log(f"kernel launches on the 3D paths: growth {g3_counts}, 9-cell "
+        f"{g9_counts}, pipeline {p3_counts}")
 
     # the coupled pipeline
     reset_launch_counts()
@@ -2285,7 +2466,6 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
 
     # checkpoints: the 22k ramp on its route (K6) and the trajectory
     # preset's growth (K4), each split and resumed
-    import tempfile
     t0 = time.perf_counter()
     reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2316,8 +2496,10 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
            "chain_cg": ("sweep", sweep_counts),
            "anast_scan": ("growth", grow_counts)}
     paths = {"FEA": fea_counts, "sweep": sweep_counts,
-             "growth": grow_counts, "coupled": pipe_counts,
-             "checkpoint": ckpt_counts, "sharded": shard_counts}
+             "growth": grow_counts, "growth_3d": g3_counts,
+             "growth_9cell": g9_counts, "pipeline_3d": p3_counts,
+             "coupled": pipe_counts, "checkpoint": ckpt_counts,
+             "sharded": shard_counts}
     for row in rows:
         row["path"], counts = own[row["name"]]
         row["launches"] = counts[row["name"]]
@@ -2333,6 +2515,10 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
                     if pipe_counts[k] < 1]
         missing += [f"checkpoint {k}" for k in ("tree_cg", "anast_scan")
                     if ckpt_counts[k] < 1]
+        missing += [f"{p} anast_scan" for p, c in (
+            ("growth_3d", g3_counts), ("growth_9cell", g9_counts),
+            ("pipeline_3d", p3_counts)) if c["anast_scan"] < 1]
+        missing += ["pipeline_3d tree_cg"] * (p3_counts["tree_cg"] < 1)
         missing += [f"sharded {k}" for k in ("pcr_factor", "pcr_apply",
                                              "ordered_sum")
                     if shard_counts[k] < 1]
@@ -2357,7 +2543,8 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
                 ramp_fractured_22k=fractured, solve_ms_309k=ms309,
                 iters_309k=it309, hybrid_ms_309k=hyb309,
                 hybrid_iters_309k=hyb_it309, hybrid_apply_309k=hyb_apply,
-                sweep=sweep, growth=growth,
+                sweep=sweep, growth=growth, growth_3d=growth3d,
+                growth_9cell=growth9, pipeline_3d=pipe3d,
                 coupled=pipe, checkpoints=ckpt, sharded=shard)
 
 

@@ -2,7 +2,8 @@
 
   python -m mycelium_tpu_torch.cli [--distributed] grow [--out results]
       [--dir D] [--steps N] [--seed S] [--capacity C] [--preset P]
-      [--snapshots none|csv] [--checkpoint-every K] [--resume FILE]
+      [--three-d] [--snapshots none|csv] [--checkpoint-every K]
+      [--resume FILE]
       [--csv-variant python|cpp] [--device cuda|cpu]
   python -m mycelium_tpu_torch.cli [--distributed] fea <results_dir>
       [--fea-steps N] [--grip G] [--disp-max D] [--preset fast|reference]
@@ -16,6 +17,8 @@
 
 ``grow`` writes ``mycelium_growth_stats.csv``, ``nodes.csv``/``elements.csv``
 (and per-step snapshots) into ``<out>/sim_<timestamp>`` or ``--dir``;
+``--three-d`` grows the reference's 3D configuration (``growth_3d_config``:
+six inoculum sites in a dish with z-walls) in place of a 2D preset;
 ``fea`` reads a results directory's mesh and writes ``fea_results/``, with
 the solver preset ``fast`` (``tuned_fea_config``: chain operator, tree
 preconditioner with the coarse correction) or ``reference``
@@ -42,8 +45,7 @@ one process a rank as ``torchrun`` starts them, NCCL on cards, gloo with
 must be the group's size. Only rank 0 writes files. ``--trace DIR``
 writes a ``torch.profiler`` Chrome trace of the ramp into DIR.
 
-Not ported yet: 3D growth (ROADMAP queue A, A5) and PNG snapshots and
-plots (A6).
+Not ported yet: PNG snapshots and plots (ROADMAP queue A, A6).
 """
 
 from __future__ import annotations
@@ -69,9 +71,6 @@ def _device(args) -> str:
 
 
 def _not_ported(args) -> None:
-    if args.three_d:
-        raise NotImplementedError("3D growth is not ported yet: ROADMAP "
-                                  "queue A, A5")
     if args.snapshots == "png":
         raise NotImplementedError("PNG snapshots are not ported yet: "
                                   "ROADMAP queue A, A6")
@@ -85,7 +84,7 @@ def _run_device(args):
 
 
 def cmd_grow(args) -> str:
-    from .config import GROWTH_PRESETS, save_run_configs
+    from .config import GROWTH_PRESETS, growth_3d_config, save_run_configs
     from .growth import run_growth
     from .growth.export import export_state_geometry, write_state_snapshot
     from .io import write_growth_stats
@@ -93,7 +92,11 @@ def cmd_grow(args) -> str:
 
     _not_ported(args)
     device = _run_device(args)
-    cfg = GROWTH_PRESETS[args.growth_preset]
+    if args.three_d and args.growth_preset != "demo":
+        raise SystemExit("--three-d grows the reference's 3D configuration; "
+                         "the growth presets are 2D")
+    cfg = growth_3d_config() if args.three_d \
+        else GROWTH_PRESETS[args.growth_preset]
     overrides = {}
     if args.steps is not None:
         overrides["t_steps"] = args.steps
@@ -259,7 +262,8 @@ def build_parser() -> argparse.ArgumentParser:
         g.add_argument(preset_flag, dest="growth_preset",
                        choices=sorted(GROWTH_PRESETS), default="demo",
                        help="growth preset")
-        g.add_argument("--three-d", action="store_true")
+        g.add_argument("--three-d", action="store_true",
+                       help="grow the reference's 3D configuration")
         g.add_argument("--snapshots", choices=("none", "csv", "png"),
                        default="csv")
         g.add_argument("--checkpoint-every", type=int, default=0,

@@ -194,10 +194,12 @@ def jax_growth_arrays(state) -> dict:
 
 def growth_state_from_jax(arrays: dict, cfg, device) -> GrowthState:
     """The port's GrowthState from ``jax_growth_arrays`` output. The grid
-    changes layout: the reference stores plane p = rank (2D) as
-    (p, cx, cy), flat index rank·M + cell; the port stores cell-major,
-    cell·C + rank. A state without a grid gets none (``ensure_grid``
-    attaches an empty one; the next step inserts the backlog)."""
+    changes layout: the reference stores plane p = rank·gz + cz over the
+    (g, g) face, flat index ((rank·gz + cz)·g + cx)·g + cy; the port
+    stores cell-major, entry cell·C + rank with cell (cx·g + cy)·gz + cz
+    (the same cell numbering as the reference's ``count``). A state
+    without a grid gets none (``ensure_grid`` attaches an empty one; the
+    next step inserts the backlog)."""
     dtype = GROWTH_DTYPES[cfg.dtype]
     device = torch.device(device)
     a = arrays
@@ -213,13 +215,13 @@ def growth_state_from_jax(arrays: dict, cfg, device) -> GrowthState:
     grid = None
     if "grid.ids" in a:
         g, gz = grid_dims(cfg)
-        if gz != 1:
-            raise NotImplementedError("3D growth grids: ROADMAP queue A, "
-                                      "A5")
-        M, C = g * g, cfg.max_per_cell
+        C = cfg.max_per_cell
+        M = g * g * gz
 
         def cell_major(x):
-            return np.asarray(x).reshape(C, M).T.reshape(-1)
+            # (rank, cz, cx·g + cy) -> (cx·g + cy, cz, rank)
+            return np.asarray(x).reshape(C, gz, g * g).transpose(2, 1, 0) \
+                .reshape(-1)
 
         geo = np.stack([cell_major(a[f"grid.a{k}"]) for k in range(3)]
                        + [cell_major(a[f"grid.ab{k}"]) for k in range(3)]

@@ -3,11 +3,12 @@
 An active tip whose endpoint comes within ``anastomosis_tol`` of another
 segment snaps to the closest point of the nearest such segment and
 becomes 'S' (reference C9, src/mycelium_sim_2D.py:507-542). Candidates are
-found through a dense cell grid over the dish.
+found through a dense cell grid over the dish: M = g·g·gz cells, cell
+(cx·g + cy)·gz + cz (gz = 1 in 2D).
 
-The port runs one layout for every 2D configuration, the JAX package's
-``grid_incremental`` one with the 2x2 corner window (the JAX package's
-tests hold it bit-equal to its full per-step rebucket):
+The port runs one layout for every configuration, the JAX package's
+``grid_incremental`` one (the JAX package's tests hold it bit-equal to its
+full per-step rebucket):
 
 - finalized segments (a hypha has extended past them; their geometry never
   changes again) live in the persistent append-only ``SegGrid``, stored
@@ -16,15 +17,17 @@ tests hold it bit-equal to its full per-step rebucket):
 - the mutable tip segments form a per-step overlay, bucketed over the H
   hypha rows by midpoint cell (cell-sorted slot ids with per-cell offsets;
   their geometry is read by slot from the state);
-- each active tip is bucketed by its nearest grid corner: every candidate
-  within tolerance then lies in the 2x2 block of cells around that corner;
-- K4 (``kernels/anast.py``) scans, per tip, those 4 cells x 2 sources.
+- each active tip is bucketed by a cell of the tip table, and a tip scans
+  a window of xy columns around it, each column's whole z extent (the
+  JAX package folds z into the candidate axis). Where the reach
+  (h0 + tol)/2 + tol of a tip is at most voxel/2, the tip's cell is its
+  nearest grid corner in xy (its own z cell) and the window the 2x2
+  columns around that corner (``window`` 4); otherwise the tip's own cell
+  and the 3x3 columns around it (``window`` 9);
+- K4 (``kernels/anast.py``) scans, per tip, those columns x 2 sources.
 
-3D configurations (gz > 1) and configurations that break the corner
-window's reach bound raise NotImplementedError (ROADMAP queue A, A5);
-the JAX package's per-step rebucket, its 9-cell window and its TPU knobs
-(``anast_kernel``, ``MYC_ANAST_KERNEL``) are layout choices for the TPU
-and are not read.
+The JAX package's per-step rebucket and its TPU knobs (``anast_kernel``,
+``MYC_ANAST_KERNEL``) are layout choices for the TPU and are not read.
 """
 
 from __future__ import annotations
@@ -37,8 +40,7 @@ import torch
 from ..config import GrowthConfig
 from ..kernels.anast import anast_scan
 from .ops import scatter_drop
-from .state import (ACTIVE, ANASTOMOSED, GrowthState, const, fma,
-                    not_ported_3d, sqrt)
+from .state import ACTIVE, ANASTOMOSED, GrowthState, const, fma, sqrt
 
 EPS_LEN = 1e-12
 
@@ -56,46 +58,56 @@ def grid_dims(cfg: GrowthConfig):
     return g, gz
 
 
-def check_layout(cfg: GrowthConfig) -> int:
-    """The face width g of a configuration the port runs; raises for the
-    ones it does not."""
-    not_ported_3d(cfg)
-    reach = (cfg.h0 + cfg.anastomosis_tol) * 0.5 + cfg.anastomosis_tol
-    if not reach <= cfg.voxel_size * 0.5:
-        raise NotImplementedError(
-            "the corner-window anastomosis query needs (h0 + tol)/2 + tol "
-            "<= voxel_size/2; the 9-cell window for other configurations "
-            "is not ported yet: ROADMAP queue A, A5")
+class Layout(NamedTuple):
+    """The grid of a configuration: face width g, z cells gz, and the
+    tip window (4: the 2x2 columns around the tip's nearest corner; 9:
+    the 3x3 columns around its own cell)."""
+    g: int
+    gz: int
+    window: int
+
+
+def check_layout(cfg: GrowthConfig) -> Layout:
+    """The layout of a configuration: the corner window where a tip's
+    reach (h0 + tol)/2 + tol is at most voxel/2 (JAX neighbors.py:
+    462-464), else the 9-cell window. Raises where K4 cannot take a
+    cell's tips one a lane of a warp."""
     if cfg.max_tips_per_cell > 32:
         raise NotImplementedError(
-            "the anastomosis scan kernel takes a corner cell's tips one a "
-            "lane of a warp: max_tips_per_cell must be at most 32")
-    return grid_dims(cfg)[0]
+            "the anastomosis scan kernel takes a cell's tips one a lane of "
+            "a warp: max_tips_per_cell must be at most 32")
+    reach = (cfg.h0 + cfg.anastomosis_tol) * 0.5 + cfg.anastomosis_tol
+    g, gz = grid_dims(cfg)
+    return Layout(g, gz, 4 if reach <= cfg.voxel_size * 0.5 else 9)
 
 
 def cell_coords(p, cfg: GrowthConfig):
-    """(..., 3) positions -> clipped integer cell coords (cx, cy) (2D)."""
-    g, _ = grid_dims(cfg)
+    """(..., 3) positions -> clipped integer cell coords (cx, cy, cz)."""
+    g, gz = grid_dims(cfg)
     c = torch.floor(p / cfg.voxel_size).to(torch.int32)
     cx = torch.clamp(c[..., 0] + g // 2, 0, g - 1)
     cy = torch.clamp(c[..., 1] + g // 2, 0, g - 1)
-    return cx, cy
+    cz = torch.clamp(c[..., 2] + gz // 2, 0, gz - 1)
+    return cx, cy, cz
 
 
 def cell_id(p, cfg: GrowthConfig):
-    g, _ = grid_dims(cfg)
-    cx, cy = cell_coords(p, cfg)
-    return cx * g + cy
+    g, gz = grid_dims(cfg)
+    cx, cy, cz = cell_coords(p, cfg)
+    return (cx * g + cy) * gz + cz
 
 
 def corner_cell(p, cfg: GrowthConfig):
-    """The cell whose lower corner is nearest to p: the tip's 2x2 window
-    is this cell and its (-1, -1), (-1, 0), (0, -1) neighbours."""
-    g, _ = grid_dims(cfg)
+    """The cell of the corner window: in xy the cell whose lower corner is
+    nearest to p (the tip's 2x2 window is this column and its (-1, -1),
+    (-1, 0), (0, -1) neighbours), in z p's own cell (JAX neighbors.py:
+    465-470)."""
+    g, gz = grid_dims(cfg)
     c = torch.floor(p / cfg.voxel_size + 0.5).to(torch.int32)
     cx = torch.clamp(c[..., 0] + g // 2, 0, g - 1)
     cy = torch.clamp(c[..., 1] + g // 2, 0, g - 1)
-    return cx * g + cy
+    cz = cell_coords(p, cfg)[2]
+    return (cx * g + cy) * gz + cz
 
 
 class Buckets(NamedTuple):
@@ -139,8 +151,8 @@ class SegGrid(NamedTuple):
 
 
 def empty_grid(cfg: GrowthConfig, capacity: int, dtype, device) -> SegGrid:
-    g, _ = grid_dims(cfg)
-    M, C = g * g, cfg.max_per_cell
+    g, gz = grid_dims(cfg)
+    M, C = g * g * gz, cfg.max_per_cell
     return SegGrid(
         ids=torch.full((M * C,), capacity, dtype=torch.int32, device=device),
         geo=torch.zeros((M * C, 8), dtype=dtype, device=device),
@@ -171,8 +183,8 @@ def grid_insert_finalized(grid: SegGrid, st: GrowthState,
     window. Returns (grid', dropped) with ``dropped`` flagging per-cell
     capacity overflow."""
     N = st.capacity
-    g, _ = grid_dims(cfg)
-    M, C = g * g, cfg.max_per_cell
+    g, gz = grid_dims(cfg)
+    M, C = g * g * gz, cfg.max_per_cell
     U = int(cfg.grid_update_cap)
     dev = st.device
     ids, geo, count = grid.ids, grid.geo, grid.count
@@ -207,8 +219,8 @@ class TipTables(NamedTuple):
     ov_slot: torch.Tensor    # (H,) int32 tip-segment slots sorted by cell
     ov_start: torch.Tensor   # (M,) int32 each cell's first overlay entry
     ov_count: torch.Tensor   # (M,) int32
-    scan_cell: torch.Tensor  # (H,) int32 corner cell in the table, -1
-    tips: tuple              # the tip table by corner cell: (order (H,),
+    scan_cell: torch.Tensor  # (H,) int32 the tip's cell in the table, -1
+    tips: tuple              # the tip table by cell: (order (H,),
                              # start (M,), count (M,)) int32, what K4 reads
     dropped: torch.Tensor    # () bool: a cell's capacity overflowed
 
@@ -216,12 +228,13 @@ class TipTables(NamedTuple):
 def tip_tables(st: GrowthState, cfg: GrowthConfig) -> TipTables:
     """Per step, over the H hypha rows: the tip-segment overlay (slot ids
     sorted by midpoint cell with per-cell offsets and counts), each active
-    tip's corner cell in the tip table (-1 for a hypha that is not in it:
-    no active tip, or rank >= max_tips_per_cell in its corner cell), and
-    that table bucketed by corner cell."""
+    tip's cell in the tip table (its corner cell for the corner window,
+    its own cell for the 9-cell window; -1 for a hypha that is not in it:
+    no active tip, or rank >= max_tips_per_cell in its cell), and that
+    table bucketed by cell."""
     H = st.tip.shape[0]
-    g, _ = grid_dims(cfg)
-    M = g * g
+    g, gz, window = check_layout(cfg)
+    M = g * g * gz
     dev = st.device
     t = st.tip.clamp(min=0).long()
     seg_ok = (torch.arange(H, device=dev) < st.n_hyp) & (st.tip >= 0)
@@ -231,7 +244,8 @@ def tip_tables(st: GrowthState, cfg: GrowthConfig) -> TipTables:
     ov = _bucket(torch.where(seg_ok, cell_id((tip_start + tip_end) * 0.5,
                                              cfg).long(), never),
                  M, cfg.max_per_cell)
-    tip_cell = torch.where(tip_ok, corner_cell(tip_end, cfg).long(), never)
+    bucket = corner_cell if window == 4 else cell_id
+    tip_cell = torch.where(tip_ok, bucket(tip_end, cfg).long(), never)
     tb = _bucket(tip_cell, M, cfg.max_tips_per_cell)
     in_tbl = (tip_cell < M) & (tb.rank < cfg.max_tips_per_cell)
     scan_cell = torch.where(in_tbl, tip_cell, torch.full_like(tip_cell, -1))
@@ -251,14 +265,14 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
     whose nearest candidate lies within tolerance to that candidate's
     closest point. Cell-capacity overflow (dropped candidates) raises the
     state's overflow flag."""
-    g = check_layout(cfg)
+    g, gz, window = check_layout(cfg)
     N = st.capacity
     grid, ins_dropped = grid_insert_finalized(st.grid, st, cfg)
     tb = tip_tables(st, cfg)
     scan_cell = tb.scan_cell
     d2, tt, wid = scan(st.tip, scan_cell, st.start, st.end, grid.ids,
                        grid.geo, grid.count, cfg.max_per_cell, tb.ov_slot,
-                       tb.ov_start, tb.ov_count, g, N, tb.tips)
+                       tb.ov_start, tb.ov_count, g, N, tb.tips, gz, window)
 
     # the winner's closest point, recomputed per hypha from its slot
     w = wid.long().clamp(max=N)

@@ -26,7 +26,7 @@ from ..config import GrowthConfig
 from .draws import StepDraws
 from .state import (ACTIVE, EMPTY, PASSIVE, EnvArrays, GrowthState, const,
                     direction_from_angles, fma, norm3, norm3_fused,
-                    perturb_phi)
+                    perturb)
 
 UPTAKE_E_FLOOR = 1e-18  # mol; negligible vs the 5e-6 Omega0 budget
 
@@ -105,6 +105,7 @@ def grow(st: GrowthState, cfg: GrowthConfig,
     t = tip_slot.clamp(min=0).long()
     tip_start = st.start[t]
     tip_end = st.end[t]
+    tip_theta = st.theta[t]
     tip_phi = st.phi[t]
     tip_sub = st.sub[t]
     tip_state = torch.where(hyp_valid, st.state[t],
@@ -133,12 +134,18 @@ def grow(st: GrowthState, cfg: GrowthConfig,
     tip_sub_new = torch.clamp(avail - total_cost, min=0.0) / L_safe
     child_sub = 0.5 * tip_sub_new
 
-    ph_e = perturb_phi(draws.ext, tip_phi, cfg)
-    ph_c = perturb_phi(draws.child, tip_phi, cfg)
+    # new directions: 2D perturbs phi and pins theta to pi/2, 3D perturbs
+    # both (one stream of uniforms for extensions, one for children)
+    ph_e = perturb(draws.ext, tip_phi, cfg)
+    ph_c = perturb(draws.child, tip_phi, cfg)
+    if cfg.three_d:
+        th_e = perturb(draws.ext_theta, tip_theta, cfg)
+        th_c = perturb(draws.child_theta, tip_theta, cfg)
+    else:
+        th_e = th_c = torch.full_like(ph_e, torch.pi / 2)
     h0 = const(cfg.h0, avail)
-    end_e = fma(direction_from_angles(ph_e), h0, tip_end)
-    end_c = fma(direction_from_angles(ph_c), h0, tip_end)
-    theta_new = torch.full_like(ph_e, torch.pi / 2)
+    end_e = fma(direction_from_angles(th_e, ph_e, cfg.three_d), h0, tip_end)
+    end_c = fma(direction_from_angles(th_c, ph_c, cfg.three_d), h0, tip_end)
 
     drop = torch.full_like(t, N)
     ext_idx = torch.where(valid_ext, ext_slot.long(), drop)
@@ -149,7 +156,7 @@ def grow(st: GrowthState, cfg: GrowthConfig,
 
     start = scatter_drop(st.start, new_idx, both([tip_end, tip_end]))
     end = scatter_drop(st.end, new_idx, both([end_e, end_c]))
-    theta = scatter_drop(st.theta, new_idx, both([theta_new, theta_new]))
+    theta = scatter_drop(st.theta, new_idx, both([th_e, th_c]))
     phi = scatter_drop(st.phi, new_idx, both([ph_e, ph_c]))
     sub = scatter_drop(st.sub, both([tip_idx, new_idx]),
                        both([tip_sub_new, child_sub, child_sub]))

@@ -99,13 +99,6 @@ def norm3_fused(v):
                     fma(v[..., 1], v[..., 1], v[..., 0] * v[..., 0])))
 
 
-def not_ported_3d(cfg: GrowthConfig) -> None:
-    if cfg.three_d:
-        raise NotImplementedError(
-            "3D growth (three_d=True, a grid with gz > 1) is not ported "
-            "yet: ROADMAP queue A, A5")
-
-
 class EnvArrays(NamedTuple):
     """Static environment geometry on the device (the nutrient E lives in
     the state)."""
@@ -171,16 +164,23 @@ def state_env_arrays(env: Environment, cfg: GrowthConfig,
                      inoculum=t(env.inoculum))
 
 
-def direction_from_angles(phi):
+def direction_from_angles(theta, phi, three_d: bool):
     """2D: (cos phi, sin phi, 0), theta pinned to pi/2
-    (mycelium_sim_2D.py:95-99)."""
+    (mycelium_sim_2D.py:95-99). 3D: (sin theta cos phi, sin theta sin
+    phi, cos theta) (mycelium_sim.py:60-63)."""
+    if three_d:
+        st = sin(theta)
+        return torch.stack([st * cos(phi), st * sin(phi), cos(theta)],
+                           dim=-1)
     return torch.stack([cos(phi), sin(phi), torch.zeros_like(phi)], dim=-1)
 
 
-def perturb_phi(u, phi, cfg: GrowthConfig):
-    """Uniform angular noise in [-lam/2, lam/2) on phi (2D,
-    mycelium_sim_2D.py:101-109), from uniforms ``u`` in [0, 1)."""
-    return fma(u - 0.5, const(cfg.lambda_angle, u), phi)
+def perturb(u, angle, cfg: GrowthConfig):
+    """Uniform angular noise in [-lam/2, lam/2) on one angle, from
+    uniforms ``u`` in [0, 1): phi in 2D (mycelium_sim_2D.py:101-109),
+    theta and phi each from their own uniforms in 3D (mycelium_sim.py:
+    65-69)."""
+    return fma(u - 0.5, const(cfg.lambda_angle, u), angle)
 
 
 def init_state(cfg: GrowthConfig, env: Environment | None = None,
@@ -192,7 +192,6 @@ def init_state(cfg: GrowthConfig, env: Environment | None = None,
     (mycelium_sim_2D.py:247-270). ``draws`` is the run's draw source
     (default ``draws.TorchDraws`` seeded from ``seed`` or cfg.seed)."""
     from .draws import TorchDraws
-    not_ported_3d(cfg)
     device = resolve(device)
     if env is None:
         env = petri_dish(cfg)
@@ -211,7 +210,8 @@ def init_state(cfg: GrowthConfig, env: Environment | None = None,
     phi0 = d0.phi * (2 * math.pi)
     starts0 = torch.repeat_interleave(ea.inoculum, cfg.h0_per_point, dim=0)
     # init_state runs eagerly in the JAX package: no contraction here
-    ends0 = starts0 + direction_from_angles(phi0) * cfg.h0
+    ends0 = starts0 + direction_from_angles(theta0, phi0, cfg.three_d) \
+        * cfg.h0
     per_seg = (cfg.omega0 / P) / cfg.h0_per_point
 
     def pad(x, fill, n=N):

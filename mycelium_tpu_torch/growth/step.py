@@ -127,7 +127,8 @@ def run_growth(cfg: GrowthConfig, env: Environment | None = None,
     start_step = st.step
     device_stats, hyphae = [], []
     for t in range(start_step, cfg.t_steps):
-        st = growth_step(st, ea, cfg, draws.step(H, dtype, walls),
+        st = growth_step(st, ea, cfg,
+                         draws.step(H, dtype, walls, cfg.three_d),
                          syncs=syncs)
         if checkpoint_path and checkpoint_every > 0 \
                 and (t + 1) % checkpoint_every == 0:

@@ -83,7 +83,7 @@ def test_detect_anastomosis_matches_reference(mode, monkeypatch):
 def scan_inputs(st, cfg):
     """The scan's arguments for a port state, as detect_anastomosis builds
     them, plus the rank of each hypha in its corner cell."""
-    g = tnb.check_layout(cfg)
+    g = tnb.check_layout(cfg).g
     grid, _ = tnb.grid_insert_finalized(st.grid, st, cfg)
     tb = tnb.tip_tables(st, cfg)
     scan_cell = tb.scan_cell

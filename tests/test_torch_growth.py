@@ -144,9 +144,9 @@ def test_cli_grow_writes_the_growth_contract(tmp_path):
 
 
 # checkpoints (the former flag0 and flag1) are ported: their CLI cases are
-# in test_torch_ramp.py
-@pytest.mark.parametrize("flag", [["--snapshots", "png"], ["--three-d"]],
-                         ids=["flag2", "flag3"])
+# in test_torch_ramp.py; 3D growth (the former flag3) in
+# test_torch_growth3d.py
+@pytest.mark.parametrize("flag", [["--snapshots", "png"]], ids=["flag2"])
 def test_cli_grow_refuses_what_is_not_ported(flag, tmp_path):
     out = _cli(["grow", "--device", "cpu", "--steps", "2", "--dir",
                 str(tmp_path / "x")] + flag, tmp_path)

@@ -16,12 +16,14 @@ names = [m.name for m in pkgutil.walk_packages(p.__path__,
                                                'mycelium_tpu_torch.')]
 for n in names:
     importlib.import_module(n)
+assert {'mycelium_tpu_torch.bench.growth_scale',
+        'mycelium_tpu_torch.bench.coupled'} <= set(names)
 import chip_smoke
 chip_smoke.run
 bad = sorted(k for k in sys.modules
              if k.split('.')[0] in ('jax', 'jaxlib', 'mycelium_tpu', 'bench'))
 print(len(names), bad)
-sys.exit(1 if bad or len(names) < 25 else 0)
+sys.exit(1 if bad or len(names) < 27 else 0)
 """
 
 

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from mycelium_tpu_torch.config import (GROWTH_PRESETS, FeaConfig,
-                                       hybrid_fea_config)
+                                       growth_3d_config, hybrid_fea_config)
 from mycelium_tpu_torch.devices import moved
 from mycelium_tpu_torch.fea import build_model, solve_displacement
 from mycelium_tpu_torch.fea.chain import plan_active_masks_bool
@@ -45,7 +45,7 @@ from torch_support import (all_levels, bound_sweep_pairs,  # noqa: F401
                            fixed_order_sums,
                            grip_for, level0, node_sums,
                            random_forest_mesh, rel_err, scan_args,
-                           synthetic_mesh, tie_state)
+                           synthetic_mesh, tie_state, tie_state_3d)
 
 
 def _chain_case(device, n_nodes=3000, frac=0.05):
@@ -422,7 +422,7 @@ def _grown_demo_plain_scan(device, steps):
 
 
 def _scan_args(st, cfg):
-    g = neighbors.check_layout(cfg)
+    g = neighbors.check_layout(cfg).g
     grid, _ = neighbors.grid_insert_finalized(st.grid, st, cfg)
     tb = neighbors.tip_tables(st, cfg)
     return (st.tip, tb.scan_cell, st.start, st.end, grid.ids, grid.geo,
@@ -490,6 +490,73 @@ def test_anast_scan_rejects_bad_tensors(cuda_device):  # noqa: F811
     bad[1] = args[1].long()
     with pytest.raises(ValueError):
         anast_scan(*bad)
+
+
+# the wider layouts: 3D grids (gz > 1) and the 9-cell window
+LAYOUTS = {"3d": growth_3d_config(),
+           "9cell": dataclasses.replace(GROWTH_PRESETS["demo"], t_steps=30,
+                                        voxel_size=0.05),
+           "3d9": growth_3d_config(voxel_size=0.05)}
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_anast_scan_matches_plain_on_wider_layouts(layout,
+                                                   cuda_device):  # noqa: F811
+    """K4 on a state grown on the card in 3D (gz 5, the corner window),
+    with the 9-cell window in 2D, and both (gz 7, voxel 0.05): (d², tt,
+    id) bit-equal to the plain version (tolerance 0), and to the CPU
+    emulation of its order of work."""
+    cfg = LAYOUTS[layout]
+    st, _, _ = run_growth(cfg, device=cuda_device)
+    args = scan_args(st, cfg)
+    assert args[-2:] == {"3d": (5, 4), "9cell": (1, 9),
+                         "3d9": (7, 9)}[layout]
+    before = launch_counts()["anast_scan"]
+    k = anast_scan(*args)
+    p = anast_scan_plain(*args)
+    e = emulate_anast_by_cell(args)
+    torch.cuda.synchronize()
+    assert launch_counts()["anast_scan"] == before + 1
+    assert int((k[2] < st.capacity).sum()) > 100
+    for a, b, c in zip(k, p, e):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+def test_anast_scan_bit_equal_on_tie_state_3d(cuda_device):  # noqa: F811
+    """K4 on the 3D tie-heavy state (ties at bitwise-equal d² in
+    different z cells and ranks of one column): bit-equal to the plain
+    version, whose position order is rank·gz + cz."""
+    cfg, st = tie_state_3d(cuda_device)
+    args = scan_args(st, cfg)
+    k = anast_scan(*args)
+    p = anast_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert int((k[2] < st.capacity).sum()) >= 100
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
+
+
+def test_growth_3d_through_anast_scan_equals_plain(cuda_device):  # noqa: F811
+    """The reference 3D configuration grown through K4 and through its
+    plain version with the same draws: the same trajectory."""
+    cfg = growth_3d_config()
+    reset_launch_counts()
+    st_k, _, hist_k = run_growth(cfg, device=cuda_device)
+    assert launch_counts()["anast_scan"] == cfg.t_steps
+    draws = TorchDraws(cfg.seed, cuda_device)
+    st, ea = init_state(cfg, petri_dish(cfg), device=cuda_device,
+                        draws=draws)
+    for _ in range(cfg.t_steps):
+        st = growth_step(st, ea, cfg, draws.step(cfg.max_hyphae,
+                                                 st.sub.dtype, True, True),
+                         scan=anast_scan_plain)
+    assert summarize(st, cfg) == {k: v for k, v in hist_k[-1].items()
+                                  if k != "step"}
+    assert hist_k[-1]["anastomosed"] > 0
+    for f in ("start", "end", "theta", "phi", "sub", "state", "prev",
+              "hypha", "tip"):
+        assert torch.equal(getattr(st_k, f), getattr(st, f)), f
+    assert not bool(st_k.overflow)
 
 
 def _cg_case(device, n_nodes=7375, frac=0.05, basis="const", max_iter=3000):

@@ -331,9 +331,6 @@ def tie_state(device="cpu", n_pairs=160, n_mirror=40, seed=5):
     the other: ties at the same d² whose projections differ, so the pick
     shows in the snapped end. Returns (cfg, state)."""
     from mycelium_tpu_torch.config import GrowthConfig
-    from mycelium_tpu_torch.growth.draws import TorchDraws
-    from mycelium_tpu_torch.growth.state import (ACTIVE, PASSIVE,
-                                                 ensure_grid, init_state)
     cfg = GrowthConfig(max_segments=1024, max_hyphae=512, h0_per_point=2,
                        inoculum_nx=2, inoculum_ny=2)
     rng = np.random.default_rng(seed)
@@ -355,6 +352,73 @@ def tie_state(device="cpu", n_pairs=160, n_mirror=40, seed=5):
                                tips + np.array(s2) * q])
                for x, s1, s2 in ((a, (1, -1), (-1, -3)), (b, (1, 2), (-1, -1)),
                                  (c, (1, 4), (-1, 2))))
+    z = np.zeros((len(a), 1))
+    return cfg, _chain_state(cfg, *(np.hstack([x, z]) for x in (a, b, c)),
+                             device)
+
+
+def tie_state_3d(device="cpu", n_pairs=240, n_mirror=60, seed=7):
+    """The 3D counterpart of ``tie_state`` on the reference 3D
+    configuration's grid (gz = 5 z cells of 0.1 mm, a tip's window the
+    whole z column of its 2x2 xy columns): ``n_pairs`` hyphae of a
+    finalized parent and an active tip child with every point on the
+    2^-6 mm lattice, z in [-6, 6] lattice steps (the z cells 1 and 2),
+    crowded into a 0.75 mm square so that a cell holds several entries at
+    several ranks; a third of the parents and a fifth of the children
+    duplicated by another hypha's. Then, for each of the first
+    ``n_mirror`` tips, moved to z = 0, a pair of segments parallel to the
+    x axis one lattice step below (z cell 1) and above it (z cell 2),
+    both finalized parents or both tip children by turns: ties at the
+    same d² in different z cells of one column, at ranks that differ, whose
+    projections differ, so the pick (rank·gz + cz first, not z-major)
+    shows in the snapped end. Returns (cfg, state)."""
+    from mycelium_tpu_torch.config import growth_3d_config
+    cfg = growth_3d_config(max_segments=2048, max_hyphae=1024,
+                           h0_per_point=2)
+    rng = np.random.default_rng(seed)
+    q = 2.0 ** -6
+    dirs = np.array([[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1)
+                     for k in (-1, 0, 1) if (i, j, k) != (0, 0, 0)],
+                    np.float64)
+    a = np.hstack([rng.integers(-24, 24, (n_pairs, 2)),
+                   rng.integers(-6, 7, (n_pairs, 1))]) * q
+    step = dirs[rng.integers(0, len(dirs), n_pairs)] * 3 * q
+    dup = rng.random(n_pairs) < 0.35
+    src = rng.integers(0, n_pairs, n_pairs)
+    a[dup], step[dup] = a[src[dup]], step[src[dup]]
+    b = a + step
+    c = b + dirs[rng.integers(0, len(dirs), n_pairs)] * 2 * q
+    dupc = rng.random(n_pairs) < 0.2
+    b[dupc], c[dupc] = b[src[dupc]], c[src[dupc]]
+    c[:n_mirror, 2] = 0.0
+    b[:n_mirror, 2] = np.where(b[:n_mirror, 2] == 0.0, q, b[:n_mirror, 2])
+    tips = c[:n_mirror]
+    # below (z cell 1) and above (z cell 2): by turns, the pair's order in
+    # the slot arrays (so either z cell's candidate may take the lower
+    # rank) and which of a pair's two segments passes over the tip (the
+    # finalized parent, in the grid, or the tip child, in the overlay)
+    i = np.arange(n_mirror)[:, None]
+    lo, hi = np.array([0, 0, -q]), np.array([0, 0, q])
+    ex = np.array([q, 0, 0])
+    first = np.where(i % 2 == 0, lo, hi)
+    second = np.where(i % 2 == 0, hi, lo)
+    over_parent = (i // 2) % 2 == 0
+    xa = np.where(over_parent, -2 * ex, -3 * ex)
+    xb = np.where(over_parent, ex, -ex)
+    xc = np.where(over_parent, 3 * ex, 2 * ex)
+    a = np.concatenate([a, tips + first + xa, tips + second + xa])
+    b = np.concatenate([b, tips + first + xb, tips + second + xb])
+    c = np.concatenate([c, tips + first + xc, tips + second + xc])
+    return cfg, _chain_state(cfg, a, b, c, device)
+
+
+def _chain_state(cfg, a, b, c, device):
+    """A growth state of hyphae of two segments each, a -> b finalized
+    (passive, in the grid once the scan inserts the backlog) and b -> c
+    the active tip (in the overlay), points (P, 3) in float32."""
+    from mycelium_tpu_torch.growth.draws import TorchDraws
+    from mycelium_tpu_torch.growth.state import (ACTIVE, PASSIVE,
+                                                 ensure_grid, init_state)
     st, _ = init_state(cfg, device=device,
                        draws=TorchDraws(cfg.seed, device))
     N, H = cfg.max_segments, cfg.max_hyphae
@@ -364,21 +428,19 @@ def tie_state(device="cpu", n_pairs=160, n_mirror=40, seed=5):
     prev = torch.full((N,), -1, dtype=torch.int32)
     hypha = torch.full((N,), -1, dtype=torch.int32)
     P = len(a)
-    z = np.zeros((P, 1))
-    start[:P] = torch.as_tensor(np.hstack([a, z]), dtype=torch.float32)
-    end[:P] = torch.as_tensor(np.hstack([b, z]), dtype=torch.float32)
+    start[:P] = torch.as_tensor(a, dtype=torch.float32)
+    end[:P] = torch.as_tensor(b, dtype=torch.float32)
     start[P:2 * P] = end[:P]
-    end[P:2 * P] = torch.as_tensor(np.hstack([c, z]), dtype=torch.float32)
+    end[P:2 * P] = torch.as_tensor(c, dtype=torch.float32)
     state[:P], state[P:2 * P] = PASSIVE, ACTIVE
     hypha[:P] = hypha[P:2 * P] = torch.arange(P, dtype=torch.int32)
     prev[P:2 * P] = torch.arange(P, dtype=torch.int32)
     tip = torch.full((H,), -1, dtype=torch.int32)
     tip[:P] = torch.arange(P, 2 * P, dtype=torch.int32)
-    st = ensure_grid(st.replace(
+    return ensure_grid(st.replace(
         grid=None, n_seg=2 * P, n_hyp=P, **{k: v.to(device) for k, v in dict(
             start=start, end=end, state=state, prev=prev, hypha=hypha,
             tip=tip).items()}), cfg)
-    return cfg, st
 
 
 class _KeepLevels:
@@ -459,8 +521,11 @@ class JaxDraws:
     JAX package's key chain, so the port sees the reference's numbers:
     init_state splits its key in 3 (theta0, phi0); each growth_step splits
     the state key in 2 and grow splits its half in 3 (branch, extension,
-    child uniforms); enforce_walls splits the kept key in 3 per sweep
-    (normals rnd, tan) and the last split is the next step's key."""
+    child uniforms; in 3D the extension's and the child's keys are split
+    in 2 once more, theta's uniforms from the first, phi's from the
+    second, as ``perturb_direction`` draws them); enforce_walls splits the
+    kept key in 3 per sweep (normals rnd, tan) and the last split is the
+    next step's key."""
 
     def __init__(self, seed, device="cpu"):
         import jax
@@ -492,12 +557,17 @@ class JaxDraws:
         return InitDraws(theta=self._t(r.uniform(k_th, (n0,), jd)),
                          phi=self._t(r.uniform(k_ph, (n0,), jd)))
 
-    def grow_draws(self, k_grow, H, dtype):
-        """The uniforms ``grow`` draws from its key."""
+    def grow_draws(self, k_grow, H, dtype, three_d=False):
+        """The uniforms ``grow`` draws from its key: [branch, extension
+        phi, child phi], in 3D then extension theta and child theta."""
         r = self.jax.random
         jd = self._jd(dtype)
-        return [self._t(r.uniform(k, (H,), jd))
-                for k in r.split(k_grow, 3)]
+        keys = list(r.split(k_grow, 3))
+        if three_d:
+            (th_e, keys[1]), (th_c, keys[2]) = (r.split(k)
+                                                for k in keys[1:])
+            keys += [th_e, th_c]
+        return [self._t(r.uniform(k, (H,), jd)) for k in keys]
 
     def wall_draws(self, key, H, dtype):
         """(key after the sweeps, rnd (3, H, 3), tan (3, H, 3))."""
@@ -510,15 +580,17 @@ class JaxDraws:
             tan.append(np.asarray(r.normal(k_tan, (H, 3), jd)))
         return key, self._t(np.stack(rnd)), self._t(np.stack(tan))
 
-    def step(self, H, dtype, walls):
+    def step(self, H, dtype, walls, three_d=False):
         from mycelium_tpu_torch.growth.draws import StepDraws
         key, k_grow = self.jax.random.split(self.key)
-        u = self.grow_draws(k_grow, H, dtype)
+        u = self.grow_draws(k_grow, H, dtype, three_d)
         rnd = tan = None
         if walls:
             key, rnd, tan = self.wall_draws(key, H, dtype)
         self.key = key
-        return StepDraws(*u, wall_rnd=rnd, wall_tan=tan)
+        return StepDraws(*u[:3], wall_rnd=rnd, wall_tan=tan,
+                         ext_theta=u[3] if three_d else None,
+                         child_theta=u[4] if three_d else None)
 
 
 def emulate_pcr_windows(launch, li, D, B):
@@ -673,57 +745,71 @@ def bound_sweep_pairs(plan, launch, factor, rp):
 
 def scan_args(st, cfg):
     """K4's arguments for a state, as ``detect_anastomosis`` builds them
-    (the tip table by corner cell last)."""
+    (the tip table by cell, then the layout's gz and window, last)."""
     from mycelium_tpu_torch.growth import neighbors
-    g = neighbors.check_layout(cfg)
+    g, gz, window = neighbors.check_layout(cfg)
     grid, _ = neighbors.grid_insert_finalized(st.grid, st, cfg)
     tb = neighbors.tip_tables(st, cfg)
     return (st.tip, tb.scan_cell, st.start, st.end, grid.ids, grid.geo,
             grid.count, cfg.max_per_cell, tb.ov_slot, tb.ov_start,
-            tb.ov_count, g, st.capacity, tb.tips)
+            tb.ov_count, g, st.capacity, tb.tips, gz, window)
 
 
-def emulate_anast_by_cell(args, ties=None):
-    """K4's order of work on the CPU: by corner cell, each cell's tips
-    against its window's candidates laid end to end in visiting order
-    ((offset, source, rank)), the winner the least (d², position), a NaN
+def emulate_anast_by_cell(args, ties=None, z_major=False):
+    """K4's order of work on the CPU: by cell of the tip table, each
+    cell's tips against its window's candidates loaded run by run, a run
+    an (offset, source, cz) cell in that order, the winner the least (d²,
+    key) with the key the candidate's visiting position ((offset, source),
+    then rank·gz + cz, which is not the load order where gz > 1), a NaN
     read as +inf, kept only below +inf; rows outside the table (inf, 0,
     N). The distances by the plain version's arithmetic. ``ties``, a dict,
     counts the tips whose least d² more than one candidate attains, by
-    what the tied candidates differ in: "cell", "source", "rank" (same
-    cell and source)."""
-    from mycelium_tpu_torch.kernels.anast import (OFFS, _dist,
-                                                  _inv_sq_length)
+    what the tied candidates differ in: "cell" (another column of the
+    window), "source", "z" (another z cell of one column and source),
+    "rank" (one cell and source). ``z_major`` orders a column's
+    candidates by (cz, rank) instead: not the JAX package's order, for the
+    tests that show the difference."""
+    from mycelium_tpu_torch.kernels.anast import (_dist, _inv_sq_length,
+                                                  window_offsets)
     (tip, cell, start, end, gids, ggeo, gcount, cap, ov_slot, ov_start,
-     ov_count, g, N, tips) = [x.cpu() if torch.is_tensor(x) else x
-                              for x in args]
+     ov_count, g, N, tips, gz, window) = [x.cpu() if torch.is_tensor(x)
+                                         else x for x in args]
     order, tstart, tcount = (t.cpu() for t in tips)
     H = tip.shape[0]
     d2 = torch.full((H,), float("inf"))
     tt = torch.zeros(H)
     ids = torch.full((H,), N, dtype=torch.int32)
     for m in torch.nonzero(tcount).flatten().tolist():
-        cx, cy = divmod(m, g)
-        cid, geo, run = [], [], []
-        for o, (dr, dc) in enumerate(OFFS):
-            x, y = cx + dr, cy + dc
-            if x < 0 or y < 0:
+        cx, cy = divmod(m // gz, g)
+        cid, geo, run, key = [], [], [], []
+        for o, (dx, dy) in enumerate(window_offsets(window)):
+            x, y = cx + dx, cy + dy
+            if not (0 <= x < g and 0 <= y < g):
                 continue
-            c = x * g + y
-            e = c * cap + torch.arange(int(gcount[c]))
-            cid.append(gids[e].long())
-            geo.append(ggeo[e][:, :7])
-            k = int(ov_start[c]) + torch.arange(int(ov_count[c]))
-            oid = ov_slot[k].long()
-            sl = oid.clamp(max=N - 1)
-            oa = start[sl]
-            oab = end[sl] - oa
-            geo.append(torch.cat([oa, oab, _inv_sq_length(oab)[:, None]],
-                                 dim=1))
-            cid.append(oid)
-            run += [torch.full((len(e),), 2 * o), torch.full((len(k),),
-                                                             2 * o + 1)]
-        cid, geo, run = torch.cat(cid), torch.cat(geo), torch.cat(run)
+            for cz in range(gz):
+                c = (x * g + y) * gz + cz
+                rk = torch.arange(int(gcount[c]))
+                e = c * cap + rk
+                cid.append(gids[e].long())
+                geo.append(ggeo[e][:, :7])
+                run.append(torch.full((len(e),), (2 * o) * gz + cz))
+                key.append((2 * o) * cap * gz + (cz * cap + rk if z_major
+                                                 else rk * gz + cz))
+                rk = torch.arange(int(ov_count[c]))
+                oid = ov_slot[int(ov_start[c]) + rk].long()
+                sl = oid.clamp(max=N - 1)
+                oa = start[sl]
+                oab = end[sl] - oa
+                geo.append(torch.cat([oa, oab, _inv_sq_length(oab)[:, None]],
+                                     dim=1))
+                cid.append(oid)
+                run.append(torch.full((len(rk),), (2 * o + 1) * gz + cz))
+                key.append((2 * o + 1) * cap * gz + (cz * cap + rk if z_major
+                                                     else rk * gz + cz))
+        if not cid:
+            continue
+        cid, geo = torch.cat(cid), torch.cat(geo)
+        run, key = torch.cat(run), torch.cat(key)
         hy = order[int(tstart[m]):int(tstart[m]) + int(tcount[m])].long()
         slot = tip[hy].long()
         D2, TT = _dist(end[slot][:, None, :], geo[None, :, 0:3],
@@ -734,14 +820,19 @@ def emulate_anast_by_cell(args, ties=None):
         if D2.shape[1] == 0:
             continue
         dmin = D2.amin(dim=1)
-        first = torch.argmax((D2 == dmin[:, None]).to(torch.uint8), dim=1)
+        # the least key among the candidates at the least d²
+        kk = torch.where(D2 == dmin[:, None], key[None, :],
+                         torch.full_like(D2, 2 ** 62, dtype=torch.int64))
+        first = torch.argmin(kk, dim=1)
         keep = dmin < float("inf")
         if ties is not None:
             for i in torch.nonzero(keep).flatten().tolist():
                 r = run[D2[i] == dmin[i]]
                 if len(r) > 1:
-                    kind = ("cell" if len(torch.unique(r // 2)) > 1 else
-                            "source" if len(torch.unique(r)) > 1 else "rank")
+                    os_ = r // gz
+                    kind = ("cell" if len(torch.unique(os_ // 2)) > 1 else
+                            "source" if len(torch.unique(os_)) > 1 else
+                            "z" if len(torch.unique(r)) > 1 else "rank")
                     ties[kind] = ties.get(kind, 0) + 1
         hk = hy[keep]
         d2[hk] = dmin[keep]
