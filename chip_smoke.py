@@ -101,6 +101,12 @@ fails:
    after: the xlarge preset at voxel 0.05 (g 704, 495,616 cells, a grid
    of 31.7 M entries) for GROWTH_STEPS steps, no overflow; K4 against
    plain on its state, timed with its bound;
+11d. fault P11, counts set to 0 before and read after: K4 with more than
+   32 tips in one cell of the tip table (``tests/torch_support.py::
+   many_tips_case``: every hypha from one inoculum point,
+   max_tips_per_cell 64), the 2D corner form and the 3D column form, each
+   grown through K4 and through the plain scan, equal every step; K4
+   against plain on each last state, bit for bit, timed with its bound;
 11c. the 3D pipeline, counts set to 0 before and read after: the 150-step
    3D network exported, read back, a cold solve (float64 residual check)
    and the 40-step pull test on its route (K6), every step converged,
@@ -126,6 +132,10 @@ fails:
    hybrid (equal active records, forces within 1e-3); K2, K3 and
    ``ordered_sum`` must launch; the card has one GPU, so no multi-GPU
    number is taken;
+14a. growth over the same one-rank group (``growth/shard.py``), counts set
+   to 0 before and read after: the demo preset for 20 steps with the
+   segment slots split over the ranks, every field, the grid and the
+   stats bit for bit ``run_growth``'s on one device, K4 once a step;
 15. every reading that traces the card (each kernel's ``device_ms``, K5's
    and K6's time by iteration cap, the device operations and host syncs of
    a K5, a K6 and each sharded solve, the NCCL kernels' device time, K5's
@@ -139,7 +149,7 @@ none it exits non-zero and prints no result. No JAX is imported.
 
 Time: the whole run must end within 1200 s, the kernels' build included;
 phases 4 and 8 (K5 and the sweep) have a budget of 90 s of it. On an
-H100 the run took 150 s with phases 11a-11c.
+H100 the run took 181-189 s with phases 11a-11d and 14a.
 """
 
 from __future__ import annotations
@@ -187,10 +197,13 @@ def shared_checks():
     """``tests/torch_support.py``: the tie-heavy scan state and the
     fixed-order sums, which this script and the tests hold to the same
     checks."""
+    import torch
     tests = os.path.join(ROOT, "tests")
     if tests not in sys.path:
         sys.path.insert(0, tests)
-    import torch_support
+    threads = torch.get_num_threads()
+    import torch_support      # sets one thread, for the tests' workers
+    torch.set_num_threads(threads)
     return torch_support
 
 
@@ -953,7 +966,7 @@ def compare_anast(st, cfg, device, preset: str) -> dict:
     return row
 
 
-def grow_plain_scan(cfg, device, on_step):
+def grow_plain_scan(cfg, device, on_step, env=None):
     """``run_growth``'s loop with K4 swapped for its plain version, which
     ``growth_step`` takes for this comparison only."""
     from mycelium_tpu_torch.growth.draws import TorchDraws
@@ -962,7 +975,8 @@ def grow_plain_scan(cfg, device, on_step):
     from mycelium_tpu_torch.kernels import anast_scan_plain
     from mycelium_tpu_torch.scenes import petri_dish
     draws = TorchDraws(cfg.seed, device)
-    st, ea = init_state(cfg, petri_dish(cfg), device=device, draws=draws)
+    st, ea = init_state(cfg, petri_dish(cfg) if env is None else env,
+                        device=device, draws=draws)
     walls = ea.wall_center.shape[0] > 0
     for t in range(cfg.t_steps):
         st = growth_step(st, ea, cfg, draws.step(cfg.max_hyphae,
@@ -973,11 +987,11 @@ def grow_plain_scan(cfg, device, on_step):
     return st
 
 
-def trajectory_check(label: str, cfg, device, every: int = 25):
-    """Phase 11 (and 11a's): grow ``cfg`` twice with the same
-    draws, through K4 (``run_growth``) and through its plain version; the
-    states and their stats must be equal every ``every`` steps and at the
-    end."""
+def trajectory_check(label: str, cfg, device, every: int = 25, env=None):
+    """Phase 11 (and 11a's, 11d's): grow ``cfg`` (in ``env``, default the
+    petri dish) twice with the same draws, through K4 (``run_growth``) and
+    through its plain version; the states and their stats must be equal
+    every ``every`` steps and at the end. Returns K4's final state."""
     import torch
     from mycelium_tpu_torch.growth import run_growth, summarize
     fields = ("start", "end", "theta", "phi", "sub", "state", "prev",
@@ -992,8 +1006,9 @@ def trajectory_check(label: str, cfg, device, every: int = 25):
 
     t0 = time.perf_counter()
     snaps_k, snaps_p = {}, {}
-    st_k, _, hist_k = run_growth(cfg, device=device, on_step=keeper(snaps_k))
-    grow_plain_scan(cfg, device, keeper(snaps_p))
+    st_k, _, hist_k = run_growth(cfg, env=env, device=device,
+                                 on_step=keeper(snaps_k))
+    grow_plain_scan(cfg, device, keeper(snaps_p), env)
     sync(device)
     same = snaps_k.keys() == snaps_p.keys() and all(
         (torch.equal(a, b) if torch.is_tensor(a) else a == b)
@@ -1006,6 +1021,88 @@ def trajectory_check(label: str, cfg, device, every: int = 25):
     if not same or bool(st_k.overflow):
         raise AssertionError(f"trajectory {label}: the K4 and plain runs "
                              "differ or overflowed")
+    return st_k
+
+
+def many_tips_path(device) -> tuple:
+    """Phase 11d (fault P11): K4 with more than 32 tips in one cell of the
+    tip table, which it takes in groups of 32
+    (``tests/torch_support.py::many_tips_case``: every hypha from one
+    inoculum point, max_tips_per_cell 64): the 2D corner form and the 3D
+    column form (gz 4) each grown through K4 and through the plain scan,
+    equal at every step, the launch counts set to 0 before and read after;
+    then K4 against plain on each last state, bit for bit, timed with its
+    bound. Returns (the readings by form, the launch counts)."""
+    from mycelium_tpu_torch.kernels import launch_counts, reset_launch_counts
+    support = shared_checks()
+    reset_launch_counts()
+    states = {}
+    for name, three_d in (("corner", False), ("column", True)):
+        cfg, env = support.many_tips_case(three_d)
+        states[name] = cfg, trajectory_check(
+            f"P11 {name} form, more than 32 tips a cell", cfg, device,
+            every=1, env=env)
+    sync(device)
+    counts = launch_counts()
+    out = {}
+    for name, (cfg, st) in states.items():
+        most = int(support.scan_args(st, cfg)[13][2].max())
+        log(f"P11 {name} form: the tip table's fullest cell holds {most} "
+            f"tips (max_tips_per_cell {cfg.max_tips_per_cell})")
+        if most <= 40:
+            raise AssertionError(f"P11 {name}: no cell of more than 40 tips")
+        out[name] = anast_reading(st, cfg, device,
+                                  f"P11 {name} form, {most} tips a cell",
+                                  {"most_tips_a_cell": most})
+    return out, counts
+
+
+def sharded_growth_check(device, steps: int = 20) -> tuple:
+    """Phase 14a (A3b): growth with the segment slots split over the ranks
+    of the one-rank group (``growth/shard.py``), the demo preset for
+    ``steps`` steps, against ``run_growth`` on one device: every field,
+    the counts, the grid and the stats history bit for bit; K4 launches
+    once a step. The reference first, then the counts set to 0 around the
+    sharded run. Returns (readings, the launch counts)."""
+    import torch
+    from mycelium_tpu_torch.config import GROWTH_PRESETS
+    from mycelium_tpu_torch.growth import run_growth
+    from mycelium_tpu_torch.growth.shard import (SlotBlocks, gathered,
+                                                 run_growth_sharded)
+    from mycelium_tpu_torch.kernels import launch_counts, reset_launch_counts
+    cfg = dataclasses.replace(GROWTH_PRESETS["demo"], t_steps=steps)
+    ref, _, hist = run_growth(cfg, device=device)
+    sync(device)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    st_l, _, hist_n = run_growth_sharded(cfg, device=device)
+    sync(device)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    st = gathered(st_l, SlotBlocks(cfg.max_segments))
+    fields = ("start", "end", "theta", "phi", "sub", "state", "prev",
+              "hypha", "tip", "env_e", "overflow")
+    unequal = [f for f in fields if not torch.equal(getattr(st, f),
+                                                   getattr(ref, f))]
+    unequal += [f"grid.{f}" for f in ("ids", "geo", "count")
+                if not torch.equal(getattr(st.grid, f), getattr(ref.grid, f))]
+    unequal += [f for f in ("n_seg", "n_hyp", "step")
+                if getattr(st, f) != getattr(ref, f)]
+    unequal += ["history"] * (hist_n != hist)
+    log(f"sharded growth on one {torch.distributed.get_backend()} rank, "
+        f"demo, {steps} steps in {wall:.3f} s ({steps / wall:.3f} steps/s), "
+        f"{hist[-1]['segments']} segments, {hist[-1]['anastomosed']} "
+        f"anastomosed: fields unequal to run_growth {unequal}; K4 launches "
+        f"{counts['anast_scan']}")
+    if unequal:
+        raise AssertionError(f"sharded growth differs from run_growth: "
+                             f"{unequal}")
+    if device.type == "cuda" and counts["anast_scan"] != steps:
+        raise AssertionError(f"sharded growth: K4 launched "
+                             f"{counts['anast_scan']} times in {steps} steps")
+    return dict(steps=steps, wall_s=wall, steps_per_s=steps / wall,
+                segments=hist[-1]["segments"], equal=True,
+                launches=counts["anast_scan"]), counts
 
 
 def pipeline_3d(device, tmp) -> dict:
@@ -2448,6 +2545,8 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     del st9
     trajectory_check("3D, 9-cell window", growth_3d_config(voxel_size=0.05),
                      device)
+    # P11: more than 32 tips a cell, both forms
+    k4_row["layouts"]["p11"], p11_counts = many_tips_path(device)
     # the 3D pipeline: grow, mesh, read back, the pull test
     reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2484,6 +2583,8 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
                                        device)
     log(f"kernel launches on the sharded path: {shard_counts} "
         f"({time.perf_counter() - t0:.2f} s)")
+    # growth over the same one-rank group
+    shard_growth, shard_growth_counts = sharded_growth_check(device)
     del model_b
     # each kernel's launches are read on the path that is its own, and
     # every path must have launched what it is said to run
@@ -2499,7 +2600,8 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
              "growth": grow_counts, "growth_3d": g3_counts,
              "growth_9cell": g9_counts, "pipeline_3d": p3_counts,
              "coupled": pipe_counts, "checkpoint": ckpt_counts,
-             "sharded": shard_counts}
+             "sharded": shard_counts, "p11": p11_counts,
+             "sharded_growth": shard_growth_counts}
     for row in rows:
         row["path"], counts = own[row["name"]]
         row["launches"] = counts[row["name"]]
@@ -2517,7 +2619,9 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
                     if ckpt_counts[k] < 1]
         missing += [f"{p} anast_scan" for p, c in (
             ("growth_3d", g3_counts), ("growth_9cell", g9_counts),
-            ("pipeline_3d", p3_counts)) if c["anast_scan"] < 1]
+            ("pipeline_3d", p3_counts), ("p11", p11_counts),
+            ("sharded_growth", shard_growth_counts))
+            if c["anast_scan"] < 1]
         missing += ["pipeline_3d tree_cg"] * (p3_counts["tree_cg"] < 1)
         missing += [f"sharded {k}" for k in ("pcr_factor", "pcr_apply",
                                              "ordered_sum")
@@ -2545,7 +2649,8 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
                 hybrid_iters_309k=hyb_it309, hybrid_apply_309k=hyb_apply,
                 sweep=sweep, growth=growth, growth_3d=growth3d,
                 growth_9cell=growth9, pipeline_3d=pipe3d,
-                coupled=pipe, checkpoints=ckpt, sharded=shard)
+                coupled=pipe, checkpoints=ckpt, sharded=shard,
+                sharded_growth=shard_growth)
 
 
 def main() -> int:

@@ -1,10 +1,11 @@
 """The coupled pipeline: grow -> mesh -> model -> pull test, each stage
 timed (port of ``mycelium_tpu/bench/coupled.py``).
 
-    python -m mycelium_tpu_torch.bench.coupled [preset] [--fea-steps N]
-        [--device cuda|cpu]
+    python -m mycelium_tpu_torch.bench.coupled [preset] [--steps N]
+        [--fea-steps N] [--device cuda|cpu]
 
-The preset is one of ``config.GROWTH_PRESETS`` (default medium); the pull
+The preset is one of ``config.GROWTH_PRESETS`` (default medium), grown for
+its own ``t_steps`` or for ``--steps`` (as ``growth_scale``'s); the pull
 test runs the JAX script's solver configuration, ``tuned_fea_config`` at
 rtol 1e-6, on whatever route ``fea/solve.py::solve_route`` picks for the
 model (K6 for a float32 forest below its memory guard). Prints one JSON
@@ -75,12 +76,14 @@ def cold_solve_ms(model, conn, cfg, device) -> tuple:
 
 
 def run(preset: str = "medium", fea_steps: int = 40,
-        device=DEFAULT_DEVICE) -> dict:
+        device=DEFAULT_DEVICE, t_steps: int | None = None) -> dict:
     from ..fea import build_model, run_ramp_scan, truncate_after_fracture
     from ..fea.solve import solve_route
     from ..growth import run_growth, state_mesh
     device = resolve(device)
     gcfg = GROWTH_PRESETS[preset]
+    if t_steps is not None:
+        gcfg = dataclasses.replace(gcfg, t_steps=t_steps)
     run_growth(dataclasses.replace(gcfg, t_steps=min(WARM_STEPS,
                                                      gcfg.t_steps)),
                device=device)
@@ -149,11 +152,13 @@ def main(argv=None) -> int:
         formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("preset", nargs="?", default="medium",
                     choices=sorted(GROWTH_PRESETS))
+    ap.add_argument("--steps", type=int, default=None,
+                    help="growth steps (default: the preset's t_steps)")
     ap.add_argument("--fea-steps", type=int, default=40)
     ap.add_argument("--device", choices=("cuda", "cpu"),
                     default=DEFAULT_DEVICE)
     args = ap.parse_args(argv)
-    run(args.preset, args.fea_steps, args.device)
+    run(args.preset, args.fea_steps, args.device, args.steps)
     return 0
 
 

@@ -2,18 +2,20 @@
 
   python -m mycelium_tpu_torch.cli [--distributed] grow [--out results]
       [--dir D] [--steps N] [--seed S] [--capacity C] [--preset P]
-      [--three-d] [--snapshots none|csv] [--checkpoint-every K]
-      [--resume FILE]
-      [--csv-variant python|cpp] [--device cuda|cpu]
+      [--three-d] [--snapshots none|csv|png] [--checkpoint-every K]
+      [--resume FILE] [--no-summary-plot]
+      [--csv-variant python|cpp] [--verbose] [--device cuda|cpu]
   python -m mycelium_tpu_torch.cli [--distributed] fea <results_dir>
       [--fea-steps N] [--grip G] [--disp-max D] [--preset fast|reference]
       [--f64] [--scan] [--sharded [N]] [--fea-checkpoint-every K]
-      [--fea-resume FILE] [--trace DIR] [--csv-variant python|cpp]
-      [--device cuda|cpu]
+      [--fea-resume FILE] [--trace DIR] [--no-plots]
+      [--csv-variant python|cpp] [--verbose] [--device cuda|cpu]
   python -m mycelium_tpu_torch.cli pipeline [grow options] [fea options]
       (the growth preset is --growth-preset there)
   python -m mycelium_tpu_torch.cli sweep <results_dir> [--trials N] [--f64]
       [--verbose] [--device cuda|cpu]
+  python -m mycelium_tpu_torch.cli plot-snapshots <results_dir>
+  python -m mycelium_tpu_torch.cli plot-fea <results_dir>
 
 ``grow`` writes ``mycelium_growth_stats.csv``, ``nodes.csv``/``elements.csv``
 (and per-step snapshots) into ``<out>/sim_<timestamp>`` or ``--dir``;
@@ -45,7 +47,16 @@ one process a rank as ``torchrun`` starts them, NCCL on cards, gloo with
 must be the group's size. Only rank 0 writes files. ``--trace DIR``
 writes a ``torch.profiler`` Chrome trace of the ramp into DIR.
 
-Not ported yet: PNG snapshots and plots (ROADMAP queue A, A6).
+Plots, as the JAX CLI draws them (``viz/plots.py``), by rank 0:
+``grow`` writes ``mycelium_growth_summary.png`` unless
+``--no-summary-plot``, and with ``--snapshots png`` a
+``snapshots/petri_step_NNNN.png`` a step in place of the CSVs; ``fea``
+writes ``fea_results/force_displacement.png`` and a
+``fea_results/fea_step_NNN.png`` a recorded step unless ``--no-plots``;
+``plot-snapshots`` renders a results directory's snapshot CSVs and
+``plot-fea`` its FEA records. A command that will plot stops before any
+work where matplotlib is not installed; a machine without it passes
+``--no-plots --no-summary-plot`` (and no ``--snapshots png``).
 """
 
 from __future__ import annotations
@@ -61,19 +72,27 @@ import time
 
 def _device(args) -> str:
     import torch
-    if args.device is None:
+    device = getattr(args, "device", None)    # the plot commands have none
+    if device is None:
         if not torch.cuda.is_available():
             raise SystemExit("no CUDA device: this command runs on the GPU; "
                              "pass --device cpu to run the plain PyTorch "
                              "path on the host instead")
         return "cuda"
-    return args.device
+    return device
 
 
-def _not_ported(args) -> None:
-    if args.snapshots == "png":
-        raise NotImplementedError("PNG snapshots are not ported yet: "
-                                  "ROADMAP queue A, A6")
+def _check_plots(args) -> None:
+    """Stop before any work where the command will plot and matplotlib is
+    missing."""
+    plots = args.cmd in ("plot-snapshots", "plot-fea") or (
+        args.cmd in ("grow", "pipeline")
+        and (not args.no_summary_plot or args.snapshots == "png")) or (
+        args.cmd in ("fea", "pipeline") and not args.no_plots)
+    if plots:
+        from .viz import require_matplotlib
+        require_matplotlib("--no-plots --no-summary-plot (and no "
+                           "--snapshots png)")
 
 
 def _run_device(args):
@@ -90,7 +109,6 @@ def cmd_grow(args) -> str:
     from .io import write_growth_stats
     from .utils.dist import is_coordinator
 
-    _not_ported(args)
     device = _run_device(args)
     if args.three_d and args.growth_preset != "demo":
         raise SystemExit("--three-d grows the reference's 3D configuration; "
@@ -113,11 +131,24 @@ def cmd_grow(args) -> str:
     if writer:
         os.makedirs(out_dir, exist_ok=True)
     on_step = None
+    snapshot_dir = os.path.join(out_dir, "snapshots")
     if args.snapshots == "csv" and writer:
-        snapshot_dir = os.path.join(out_dir, "snapshots")
-
         def on_step(t, st):
             write_state_snapshot(st, snapshot_dir, t)
+    elif args.snapshots == "png" and writer:
+        import numpy as np
+
+        from .growth import segments_to_host
+        from .viz import plot_mycelium
+
+        def on_step(t, st):
+            starts, ends, sub, _, _ = segments_to_host(st)
+            inten = sub * np.linalg.norm(ends - starts, axis=1)
+            plot_mycelium(starts, ends, inten, t,
+                          os.path.join(snapshot_dir,
+                                       f"petri_step_{t:04d}.png"),
+                          dish_size=cfg.dish_size, three_d=cfg.three_d,
+                          height=cfg.height)
 
     initial_state = draws = None
     if args.resume:
@@ -141,6 +172,9 @@ def cmd_grow(args) -> str:
         write_growth_stats(out_dir, history, variant=args.csv_variant)
         export_state_geometry(st, out_dir)
         save_run_configs(out_dir, growth=cfg)
+        if not args.no_summary_plot:
+            from .viz import plot_growth_summary
+            plot_growth_summary(history, out_dir)
     final = history[-1]
     print(f"done: {final['hyphae']} hyphae, {final['segments']} segments, "
           f"{final['total_length_mm']:.1f} mm")
@@ -205,9 +239,31 @@ def cmd_fea(args) -> str:
         write_solve_runtimes(fea_dir, res.solve_seconds)
         write_runtime(fea_dir, time.time() - t0)
         save_run_configs(args.results_dir, fea=cfg)
+        if not args.no_plots:
+            _plot_fea(coords, conn, res.stress_record, res.active_record,
+                      res.force_disp, fea_dir, res.disp_record)
+    if args.verbose:
+        for i, (d, force) in enumerate(res.force_disp):
+            print(f"step {i}: displacement {d:.6g} mm, force {force:.6g} N, "
+                  f"active {int(res.active_record[i].sum())}")
     print(f"{res.force_disp.shape[0]} steps, peak force "
           f"{res.force_disp[:, 1].max():.6g} -> {fea_dir}")
     return fea_dir
+
+
+def _plot_fea(coords, conn, stress, active, force_disp, fea_dir,
+              disp=None) -> int:
+    """force_displacement.png and a fea_step_NNN.png a recorded step (on
+    the displaced network where ``disp`` is given, as after ``fea``; on
+    the mesh as read, as ``plot-fea`` draws it). Returns the steps."""
+    from .viz import plot_force_displacement, plot_network
+    plot_force_displacement(force_disp,
+                            os.path.join(fea_dir, "force_displacement.png"))
+    for step in range(stress.shape[0]):
+        xy = coords if disp is None else coords + disp[step].reshape(-1, 3)
+        plot_network(xy, conn, stress[step], active[step],
+                     os.path.join(fea_dir, f"fea_step_{step:03d}.png"), step)
+    return stress.shape[0]
 
 
 def cmd_pipeline(args) -> str:
@@ -232,6 +288,32 @@ def cmd_sweep(args) -> str:
                             verbose=args.verbose, device=device)
     print(f"{len(rows)} timings -> {out_csv}")
     return out_csv
+
+
+def cmd_plot_snapshots(args) -> int:
+    """Every snapshots/step_*.csv of a results directory to a PNG beside
+    it."""
+    import glob
+
+    from .viz import plot_snapshot_csv
+    snaps = sorted(glob.glob(os.path.join(args.results_dir, "snapshots",
+                                          "step_*.csv")))
+    for csv in snaps:
+        plot_snapshot_csv(csv, csv.replace(".csv", ".png"))
+    print(f"rendered {len(snaps)} snapshots")
+    return len(snaps)
+
+
+def cmd_plot_fea(args) -> int:
+    """A results directory's FEA records (``fea_results/``) drawn on its
+    mesh."""
+    from .io import read_fea_records, read_mesh_dir
+    coords, conn = read_mesh_dir(args.results_dir)
+    fea_dir = os.path.join(args.results_dir, "fea_results")
+    stress, active, force_disp = read_fea_records(fea_dir, conn.shape[0])
+    n = _plot_fea(coords, conn, stress, active, force_disp, fea_dir)
+    print(f"rendered {n} FEA frames")
+    return n
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -270,6 +352,8 @@ def build_parser() -> argparse.ArgumentParser:
                        help="save growth_checkpoint.npz every K steps")
         g.add_argument("--resume", default=None, metavar="FILE",
                        help="resume growth from a growth checkpoint")
+        g.add_argument("--no-summary-plot", action="store_true",
+                       help="write no mycelium_growth_summary.png")
         g.add_argument("--verbose", action="store_true")
 
     def fea_args(g):
@@ -298,6 +382,9 @@ def build_parser() -> argparse.ArgumentParser:
         g.add_argument("--trace", default=None, metavar="DIR",
                        help="write a torch.profiler Chrome trace of the "
                             "ramp into DIR")
+        g.add_argument("--no-plots", action="store_true",
+                       help="write no force_displacement.png and no "
+                            "fea_step_NNN.png")
 
     g = sub.add_parser("grow", help="run the growth simulation")
     grow_args(g, "--preset")
@@ -306,6 +393,9 @@ def build_parser() -> argparse.ArgumentParser:
     f = sub.add_parser("fea", help="pull-test ramp on a results dir")
     f.add_argument("results_dir")
     fea_args(f)
+    f.add_argument("--verbose", action="store_true",
+                   help="print each recorded step's displacement, force "
+                        "and active elements")
     common(f)
     f.set_defaults(fn=cmd_fea)
     p = sub.add_parser("pipeline", help="grow, then fea on its output")
@@ -320,11 +410,18 @@ def build_parser() -> argparse.ArgumentParser:
     w.add_argument("--verbose", action="store_true")
     w.add_argument("--device", choices=("cuda", "cpu"), default=None)
     w.set_defaults(fn=cmd_sweep)
+    ps = sub.add_parser("plot-snapshots", help="render snapshot CSVs to PNG")
+    ps.add_argument("results_dir")
+    ps.set_defaults(fn=cmd_plot_snapshots)
+    pf = sub.add_parser("plot-fea", help="render FEA records to PNG")
+    pf.add_argument("results_dir")
+    pf.set_defaults(fn=cmd_plot_fea)
     return ap
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    _check_plots(args)
     if args.distributed:
         from .utils.dist import initialize_distributed
         initialize_distributed(device=_device(args))

@@ -70,12 +70,7 @@ class Layout(NamedTuple):
 def check_layout(cfg: GrowthConfig) -> Layout:
     """The layout of a configuration: the corner window where a tip's
     reach (h0 + tol)/2 + tol is at most voxel/2 (JAX neighbors.py:
-    462-464), else the 9-cell window. Raises where K4 cannot take a
-    cell's tips one a lane of a warp."""
-    if cfg.max_tips_per_cell > 32:
-        raise NotImplementedError(
-            "the anastomosis scan kernel takes a cell's tips one a lane of "
-            "a warp: max_tips_per_cell must be at most 32")
+    462-464), else the 9-cell window."""
     reach = (cfg.h0 + cfg.anastomosis_tol) * 0.5 + cfg.anastomosis_tol
     g, gz = grid_dims(cfg)
     return Layout(g, gz, 4 if reach <= cfg.voxel_size * 0.5 else 9)
@@ -221,7 +216,9 @@ class TipTables(NamedTuple):
     ov_count: torch.Tensor   # (M,) int32
     scan_cell: torch.Tensor  # (H,) int32 the tip's cell in the table, -1
     tips: tuple              # the tip table by cell: (order (H,),
-                             # start (M,), count (M,)) int32, what K4 reads
+                             # start (M,), count (M,)) int32 and the most
+                             # tips a cell (max_tips_per_cell), what K4
+                             # reads
     dropped: torch.Tensor    # () bool: a cell's capacity overflowed
 
 
@@ -252,19 +249,23 @@ def tip_tables(st: GrowthState, cfg: GrowthConfig) -> TipTables:
     return TipTables(
         ov_slot=t[ov.order].to(torch.int32), ov_start=ov.start,
         ov_count=ov.count, scan_cell=scan_cell.to(torch.int32),
-        tips=(tb.order.to(torch.int32), tb.start, tb.count),
+        tips=(tb.order.to(torch.int32), tb.start, tb.count,
+              cfg.max_tips_per_cell),
         dropped=ov.dropped | tb.dropped)
 
 
-def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
-                       scan=anast_scan) -> GrowthState:
+def detect_anastomosis(st: GrowthState, cfg: GrowthConfig, scan=anast_scan,
+                       out: GrowthState | None = None,
+                       put=scatter_drop) -> GrowthState:
     """Snap active tips onto nearby segments: insert the newly finalized
     segments into the persistent grid, build the per-step tables, run the
     distance scan (K4; ``scan`` swaps in K4's plain version for the
     kernel-against-plain trajectory checks only), then snap every tip
     whose nearest candidate lies within tolerance to that candidate's
     closest point. Cell-capacity overflow (dropped candidates) raises the
-    state's overflow flag."""
+    state's overflow flag. ``st`` is what is read; the snaps go into
+    ``out``'s slot arrays (default ``st``'s) through ``put``, as in
+    ``ops.grow``."""
     g, gz, window = check_layout(cfg)
     N = st.capacity
     grid, ins_dropped = grid_insert_finalized(st.grid, st, cfg)
@@ -282,8 +283,9 @@ def detect_anastomosis(st: GrowthState, cfg: GrowthConfig,
     tol = const(cfg.anastomosis_tol, d2)
     snap = (scan_cell >= 0) & (sqrt(d2) <= tol)
     idx = torch.where(snap, st.tip.long(), torch.full_like(w, N))
-    return st.replace(
-        end=scatter_drop(st.end, idx, proj),
-        state=scatter_drop(st.state, idx, torch.full_like(idx, ANASTOMOSED)),
+    out = st if out is None else out
+    return out.replace(
+        end=put(out.end, idx, proj),
+        state=put(out.state, idx, torch.full_like(idx, ANASTOMOSED)),
         grid=grid,
         overflow=st.overflow | ins_dropped | tb.dropped)

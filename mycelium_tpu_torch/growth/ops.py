@@ -55,15 +55,25 @@ def translocate(st: GrowthState, cfg: GrowthConfig) -> GrowthState:
     uses the original sub, each slot receives at most one +delta (itself)
     and one -delta (its unique extension child), then one clamp."""
     n = st.n_seg
-    m_cap = const(cfg.m_cap, st.sub)
-    scale = const(cfg.dt * cfg.diffusion, st.sub)
     prev = st.prev[:n].long()
     sub_c = st.sub[:n]
     L = norm3(st.end[:n] - st.start[:n])
     valid = (prev >= 0) & (st.state[:n] != EMPTY)
     p = prev.clamp(min=0)
-    lp = L[p]
-    sub_p = sub_c[p]
+    adj, ok = exchange(sub_c, sub_c[p], L, L[p], valid, cfg)
+    acc = st.sub.clone()
+    acc[:n] = sub_c + adj
+    acc.index_add_(0, p, torch.where(ok, -adj, torch.zeros_like(adj)))
+    return st.replace(sub=acc.clamp(0.0, cfg.m_cap))
+
+
+def exchange(sub_c, sub_p, L, lp, valid, cfg: GrowthConfig):
+    """``translocate``'s transfer between each slot (substrate ``sub_c``,
+    length ``L``) and its parent (``sub_p``, ``lp``): (adj, ok), the
+    clamped amount the slot gains and its parent loses (0 where not
+    ``ok``), and where the exchange applies."""
+    m_cap = const(cfg.m_cap, sub_c)
+    scale = const(cfg.dt * cfg.diffusion, sub_c)
     denom = (L + lp) / 2.0
     ok = valid & (denom > 0)
     denom_safe = torch.where(denom > 0, denom, torch.ones_like(denom))
@@ -77,15 +87,11 @@ def translocate(st: GrowthState, cfg: GrowthConfig) -> GrowthState:
                     torch.where(new_p < 0, sub_p,
                                 torch.where(new_p > m_cap, m_cap - sub_p,
                                             delta))))
-    adj = torch.where(ok, adj, torch.zeros_like(adj))
-    acc = st.sub.clone()
-    acc[:n] = sub_c + adj
-    acc.index_add_(0, p, torch.where(ok, -adj, torch.zeros_like(adj)))
-    return st.replace(sub=acc.clamp(0.0, cfg.m_cap))
+    return torch.where(ok, adj, torch.zeros_like(adj)), ok
 
 
-def grow(st: GrowthState, cfg: GrowthConfig,
-         draws: StepDraws) -> GrowthState:
+def grow(st: GrowthState, cfg: GrowthConfig, draws: StepDraws,
+         out: GrowthState | None = None, put=scatter_drop) -> GrowthState:
     """Apical extension and branching (mycelium_sim_2D.py:388-460).
 
     Per active tip with enough substrate (I·L >= c_g·h0): spend the growth
@@ -95,7 +101,12 @@ def grow(st: GrowthState, cfg: GrowthConfig,
     receive half the parent's post-cost concentration (substrate is not
     conserved here, faithfully to the reference). Extensions take the
     slots [n_seg, n_seg + n_ext), children the ones after. Reads the new
-    counts back to the host: one sync."""
+    counts back to the host: one sync.
+
+    ``st`` is what is read. The slot arrays written are ``out``'s (default
+    ``st``'s), through ``put(array, slots, values)`` (default
+    ``scatter_drop``): the sharded step reads the gathered slots and
+    writes its rank's block (``growth/shard.py``)."""
     N, H = st.capacity, st.tip.shape[0]
     dev = st.device
     i32 = torch.int32
@@ -154,18 +165,19 @@ def grow(st: GrowthState, cfg: GrowthConfig,
     new_idx = torch.cat([ext_idx, child_idx])
     both = torch.cat
 
-    start = scatter_drop(st.start, new_idx, both([tip_end, tip_end]))
-    end = scatter_drop(st.end, new_idx, both([end_e, end_c]))
-    theta = scatter_drop(st.theta, new_idx, both([th_e, th_c]))
-    phi = scatter_drop(st.phi, new_idx, both([ph_e, ph_c]))
-    sub = scatter_drop(st.sub, both([tip_idx, new_idx]),
-                       both([tip_sub_new, child_sub, child_sub]))
-    state = scatter_drop(
-        st.state, both([tip_idx, new_idx]),
+    out = st if out is None else out
+    start = put(out.start, new_idx, both([tip_end, tip_end]))
+    end = put(out.end, new_idx, both([end_e, end_c]))
+    theta = put(out.theta, new_idx, both([th_e, th_c]))
+    phi = put(out.phi, new_idx, both([ph_e, ph_c]))
+    sub = put(out.sub, both([tip_idx, new_idx]),
+              both([tip_sub_new, child_sub, child_sub]))
+    state = put(
+        out.state, both([tip_idx, new_idx]),
         both([torch.full_like(t, PASSIVE), torch.full_like(new_idx, ACTIVE)]))
-    prev = scatter_drop(st.prev, new_idx,
-                        both([tip_slot, torch.full_like(tip_slot, -1)]))
-    hypha = scatter_drop(st.hypha, new_idx, both([hyp_ids, child_hyp]))
+    prev = put(out.prev, new_idx,
+               both([tip_slot, torch.full_like(tip_slot, -1)]))
+    hypha = put(out.hypha, new_idx, both([hyp_ids, child_hyp]))
     tip = torch.where(valid_ext, ext_slot, st.tip)
     tip = scatter_drop(tip, torch.where(valid_child,
                                         (st.n_hyp + child_off).long(),
@@ -173,7 +185,7 @@ def grow(st: GrowthState, cfg: GrowthConfig,
 
     n_ext, n_child = n_new.tolist()          # the step's count sync
     overflow = (st.n_seg + n_ext + n_child > N) or (st.n_hyp + n_child > H)
-    return st.replace(
+    return out.replace(
         start=start, end=end, theta=theta, phi=phi, sub=sub, state=state,
         prev=prev, hypha=hypha, tip=tip,
         n_seg=min(st.n_seg + n_ext + n_child, N),
@@ -302,17 +314,19 @@ def uptake(st: GrowthState, env: EnvArrays, cfg: GrowthConfig,
 
 
 def enforce_walls(st: GrowthState, env: EnvArrays, cfg: GrowthConfig,
-                  draws: StepDraws) -> GrowthState:
+                  draws: StepDraws, out: GrowthState | None = None,
+                  put=scatter_drop) -> GrowthState:
     """Project tips penetrating impenetrable cuboids tangentially along the
     wall face, up to 3 sweeps for corners (mycelium_sim_2D.py:340-383).
     Applies to the last segment of every hypha regardless of state and
     reactivates projected tips ('A'), both faithful reference quirks. The
     sweeps' random fallback directions come from ``draws.wall_rnd`` /
-    ``draws.wall_tan``."""
+    ``draws.wall_tan``. ``out`` and ``put`` as in ``grow``."""
     H, N = st.tip.shape[0], st.capacity
     W = env.wall_center.shape[0]
+    out = st if out is None else out
     if W == 0:
-        return st
+        return out
     dev = st.device
     hyp_valid = (torch.arange(H, device=dev) < st.n_hyp) & (st.tip >= 0)
     t = st.tip.clamp(min=0).long()
@@ -356,9 +370,8 @@ def enforce_walls(st: GrowthState, env: EnvArrays, cfg: GrowthConfig,
     new_phi = torch.atan2(dirv[:, 1], dirv[:, 0])
 
     idx = torch.where(touched, t, torch.full_like(t, N))
-    return st.replace(
-        end=scatter_drop(st.end, idx, end),
-        theta=scatter_drop(st.theta, idx, new_theta),
-        phi=scatter_drop(st.phi, idx, new_phi),
-        state=scatter_drop(st.state, idx,
-                           torch.full_like(idx, ACTIVE)))
+    return out.replace(
+        end=put(out.end, idx, end),
+        theta=put(out.theta, idx, new_theta),
+        phi=put(out.phi, idx, new_phi),
+        state=put(out.state, idx, torch.full_like(idx, ACTIVE)))

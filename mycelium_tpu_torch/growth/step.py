@@ -27,8 +27,8 @@ from ..scenes import Environment, petri_dish
 from .draws import StepDraws, TorchDraws
 from .neighbors import detect_anastomosis
 from .ops import enforce_walls, grow, translocate, uptake
-from .state import (ACTIVE, ANASTOMOSED, PASSIVE, EnvArrays, GrowthState,
-                    ensure_grid, init_state, state_env_arrays)
+from .state import (ACTIVE, ANASTOMOSED, EMPTY, PASSIVE, EnvArrays,
+                    GrowthState, ensure_grid, init_state, state_env_arrays)
 
 STAT_KEYS = ("hyphae", "segments", "active_tips", "passive_tips",
              "anastomosed", "branches", "total_length_mm")
@@ -67,12 +67,20 @@ def summarize_device(st: GrowthState) -> torch.Tensor:
     """Per-step network statistics on the device (mycelium_sim_2D.py:
     201-242): segments, active, passive and anastomosed counts and the
     total length, as one float64 vector (counts below 2^53 are exact)."""
-    alive = st.alive()
-    length = torch.where(alive, st.length(), torch.zeros_like(st.sub))
-    return torch.stack([alive.sum().double(),
-                        (st.state == ACTIVE).sum().double(),
-                        (st.state == PASSIVE).sum().double(),
-                        (st.state == ANASTOMOSED).sum().double(),
+    return stats_vector(st.state, alive_lengths(st))
+
+
+def alive_lengths(st: GrowthState) -> torch.Tensor:
+    """Each slot's segment length, 0 for an empty slot."""
+    return torch.where(st.alive(), st.length(), torch.zeros_like(st.sub))
+
+
+def stats_vector(state, length) -> torch.Tensor:
+    """``summarize_device``'s vector from every slot's state and length."""
+    return torch.stack([(state != EMPTY).sum().double(),
+                        (state == ACTIVE).sum().double(),
+                        (state == PASSIVE).sum().double(),
+                        (state == ANASTOMOSED).sum().double(),
                         length.sum().double()])
 
 
@@ -86,6 +94,19 @@ def _stats_row(v, n_hyp: int, cfg: GrowthConfig) -> Dict:
 
 def summarize(st: GrowthState, cfg: GrowthConfig) -> Dict:
     return _stats_row(summarize_device(st).tolist(), st.n_hyp, cfg)
+
+
+def history_rows(device_stats, hyphae, cfg: GrowthConfig,
+                 start_step: int = 0) -> List[Dict]:
+    """The stats history from each step's device vector and hypha count,
+    fetched from the device at once."""
+    fetched = torch.stack(device_stats).tolist() if device_stats else []
+    history: List[Dict] = []
+    for t, (v, n_hyp) in enumerate(zip(fetched, hyphae), start=start_step):
+        row = _stats_row(v, n_hyp, cfg)
+        row["step"] = t
+        history.append(row)
+    return history
 
 
 def run_growth(cfg: GrowthConfig, env: Environment | None = None,
@@ -140,12 +161,7 @@ def run_growth(cfg: GrowthConfig, env: Environment | None = None,
             print(f"Step {t}: {summarize(st, cfg)}")
         if on_step is not None:
             on_step(t, st)
-    fetched = torch.stack(device_stats).tolist() if device_stats else []
-    history: List[Dict] = []
-    for t, (v, n_hyp) in enumerate(zip(fetched, hyphae), start=start_step):
-        row = _stats_row(v, n_hyp, cfg)
-        row["step"] = t
-        history.append(row)
+    history = history_rows(device_stats, hyphae, cfg, start_step)
     if bool(st.overflow):
         warnings.warn("growth capacity exhausted: increase "
                       "GrowthConfig.max_segments/max_hyphae")

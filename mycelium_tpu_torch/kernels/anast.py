@@ -25,8 +25,8 @@ smallest squared distance in that visiting order
 grid's (a, ab, r) are stored per entry; an overlay candidate's are
 computed from ``start``/``end`` by slot. The kernel works by cell: it
 takes the tip table bucketed by cell (``tips``: the hyphae sorted by
-cell, each cell's first position and count), which the plain version
-does not read.
+cell, each cell's first position and count, and the most tips a cell),
+which the plain version does not read.
 
 The nesting (offsets outermost, then source, then position) and the
 arithmetic are the JAX package's XLA scan (neighbors.py:585-620), and the
@@ -197,8 +197,10 @@ def anast_scan(tip_slot, tip_cell, start, end, grid_ids, grid_geo,
                n_slots: int, tips=None, gz: int = 1, window: int = 4):
     """The scan: the CUDA kernel for CUDA tensors (float32 only, raises
     otherwise; ``tips`` = (order (H,), start (M,), count (M,)) int32, the
-    tip table by cell, at most 32 a cell: ``neighbors.tip_tables``), the
-    plain version for CPU tensors. ``gz`` and ``window`` are the layout's
+    tip table by cell, and the most tips it holds a cell, any number
+    (``neighbors.tip_tables``: max_tips_per_cell); above 32 the kernel's
+    form that takes a cell's tips in groups of 32), the plain version for
+    CPU tensors. ``gz`` and ``window`` are the layout's
     (``neighbors.check_layout``)."""
     window_offsets(window)
     if start.device.type == "cpu":
@@ -208,13 +210,14 @@ def anast_scan(tip_slot, tip_cell, start, end, grid_ids, grid_geo,
                                 window=window)
     if tips is None:
         raise ValueError("anast_scan: the kernel needs the tip table by "
-                         "cell (tips = (order, start, count))")
+                         "cell (tips = (order, start, count, most tips a "
+                         "cell))")
     H, N, M = tip_slot.shape[0], n_slots, g * g * gz
     if max(H, M * cap, 3 * N, 2 * window * cap * gz) >= 2 ** 31:
         raise ValueError("anast_scan: the kernel indexes with 32 bits: H, "
                          "g²·gz·cap and 3·n_slots must stay below 2^31")
     f32, i32 = torch.float32, torch.int32
-    order, tstart, tcount = tips
+    order, tstart, tcount, per_cell = tips
     for name, t, shape, dt in (
             ("tip_slot", tip_slot, (H,), i32), ("tip_cell", tip_cell, (H,), i32),
             ("tips.order", order, (H,), i32),
@@ -238,7 +241,7 @@ def anast_scan(tip_slot, tip_cell, start, end, grid_ids, grid_geo,
         end.data_ptr(), grid_ids.data_ptr(), grid_geo.data_ptr(),
         grid_count.data_ptr(), ov_slot.data_ptr(), ov_start.data_ptr(),
         ov_count.data_ptr(), d2.data_ptr(), tt.data_ptr(), ids.data_ptr(),
-        H, int(cap), int(g), N, int(gz), int(window),
+        H, int(cap), int(g), N, int(gz), int(window), int(per_cell),
         build.stream_handle(start))
     build.check(rc, "anast_scan_f32")
     build.count_launch("anast_scan")

@@ -80,7 +80,7 @@ _SIGNATURES = {
     # tip_slot, tip_cell, tip_order, tip_start, tip_count, start, end,
     # gids, ggeo, gcount, ov_slot, ov_start, ov_count, d2, tt, id, H, cap,
     # g, n_slots, gz, window, stream
-    "anast_scan_f32": [_P] * 16 + [_I64] + [ctypes.c_int] * 5 + [_P],
+    "anast_scan_f32": [_P] * 16 + [_I64] + [ctypes.c_int] * 6 + [_P],
     # ptrs, n_ptrs, ints, n_ints (the enums Ptr and Int of chain_cg.cu),
     # active, anchored, x0, x, stats, dy_top, dy_bot, rtol, reg, max_iter,
     # setup_only, stream

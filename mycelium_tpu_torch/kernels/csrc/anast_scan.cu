@@ -15,7 +15,8 @@
 //   corner window: its nearest corner in xy, its own cell in z; the 9-cell
 //   window: its own cell), -1 if h is not in the table; tip_slot[h] its
 //   segment slot;
-// - the tip table by cell: cell m's tip_count[m] (<= 32) hyphae are
+// - the tip table by cell: cell m's tip_count[m] hyphae (at most the
+//   configuration's max_tips_per_cell, any number) are
 //   tip_order[tip_start[m] + t], in row order;
 // - the persistent grid, cell-major: entry k of cell m at m*cap + k, with
 //   gids[e] the segment slot and ggeo[e] 8 floats (a, ab = end - start,
@@ -53,8 +54,17 @@
 // corner form; gz is an argument. One launch, a warp a cell of the tip
 // table. Every thread first writes (inf, 0, n_slots) to its rows of the
 // hypha range that are outside the table. Then each warp walks the cells
-// (a persistent grid; an empty cell costs one broadcast load). Lane t < nt
-// loads the cell's tip t.
+// (a persistent grid; an empty cell costs one broadcast load). It takes
+// the cell's tips in groups of 32: in group j, lane t loads tip 32j + t,
+// and the group walks the window's candidates as below; a cell of more
+// than 32 tips reads its window once a group. The loop over groups is a
+// form of the kernel of its own (kGroups), launched where the table holds
+// more than 32 tips a cell (max_tips_per_cell > 32); the default (16)
+// launches the form without it, whose registers and spills are those of
+// the kernel before groups existed. A loop over groups in the one form,
+// even behind a branch or in a second walk over the cells, raised the
+// corner form's spills from 140 to 304 bytes and its time on the xlarge
+// state by 6-8% on the card.
 // - The 2D corner form (window 4, gz 1), compiled apart: lanes 0..7 read
 //   the counts of the window's 8 (offset, source) runs and a warp scan
 //   lays them end to end in visiting order; the warp takes the window's
@@ -134,15 +144,16 @@ struct Args {
                                 // < 2^31
 };
 
-// The 2D corner form: cell m's nt tips against its 2x2 window's
-// candidates; every lane of the warp calls it with the same m and nt.
-__device__ void scan_cell(const Args& a, int m, int nt, int lane) {
+// The 2D corner form: the nt (<= 32) tips t0, t0 + 1, ... of cell m
+// against its 2x2 window's candidates; every lane of the warp calls it
+// with the same m, t0 and nt.
+__device__ void scan_cell(const Args& a, int m, int t0, int nt, int lane) {
   const float inf = __int_as_float(0x7f800000);
-  // lane t < nt holds the cell's tip t: row h, slot, end point p
+  // lane t < nt holds the cell's tip t0 + t: row h, slot, end point p
   int h = -1, slot = -1;
   float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;
   if (lane < nt) {
-    h = a.tip_order[a.tip_start[m] + lane];
+    h = a.tip_order[a.tip_start[m] + t0 + lane];
     slot = a.tip_slot[h];
     p0 = a.end[3 * slot];
     p1 = a.end[3 * slot + 1];
@@ -259,17 +270,18 @@ __device__ void scan_cell(const Args& a, int m, int nt, int lane) {
   }
 }
 
-// Any layout: cell m's nt tips against the gz cells of each of the kW
-// columns of its window; every lane of the warp calls it with the same m
-// and nt.
+// Any layout: the nt (<= 32) tips t0, t0 + 1, ... of cell m against the
+// gz cells of each of the kW columns of its window; every lane of the warp
+// calls it with the same m, t0 and nt.
 template <int kW>
-__device__ void scan_cell_column(const Args& a, int m, int nt, int lane) {
+__device__ void scan_cell_column(const Args& a, int m, int t0, int nt,
+                                 int lane) {
   const float inf = __int_as_float(0x7f800000);
   const int no_key = 0x7fffffff;
   int h = -1, slot = -1;
   float p0 = 0.0f, p1 = 0.0f, p2 = 0.0f;
   if (lane < nt) {
-    h = a.tip_order[a.tip_start[m] + lane];
+    h = a.tip_order[a.tip_start[m] + t0 + lane];
     slot = a.tip_slot[h];
     p0 = a.end[3 * slot];
     p1 = a.end[3 * slot + 1];
@@ -401,11 +413,21 @@ __device__ void scan_cell_column(const Args& a, int m, int nt, int lane) {
   }
 }
 
+// Cell m's tips t0 .. t0 + nt - 1 (nt <= 32) in the layout's form.
+template <int kW, bool kCorner2D>
+__device__ __forceinline__ void scan_group(const Args& a, int m, int t0,
+                                           int nt, int lane) {
+  if constexpr (kCorner2D)
+    scan_cell(a, m, t0, nt, lane);
+  else
+    scan_cell_column<kW>(a, m, t0, nt, lane);
+}
+
 // The 2D corner form at 32 registers a thread, so 64 warps an SM: the
 // warps wait on loads, and more of them in flight is what shortens the
 // launch. The column form holds more state a lane (the run's key, the
-// best key) and gets 64 registers.
-template <int kW, bool kCorner2D>
+// best key) and gets 64 registers. kGroups: cells of more than 32 tips.
+template <int kW, bool kCorner2D, bool kGroups>
 __global__ void __launch_bounds__(kThreads, kCorner2D ? 8 : 4)
     anast_scan_kernel(Args a) {
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
@@ -421,13 +443,26 @@ __global__ void __launch_bounds__(kThreads, kCorner2D ? 8 : 4)
   const int M = a.g * a.g * a.gz;
   for (int m = tid >> 5; m < M; m += nth >> 5) {
     const int nt = a.tip_count[m];
-    if (nt > 0) {
-      if constexpr (kCorner2D)
-        scan_cell(a, m, nt, lane);
-      else
-        scan_cell_column<kW>(a, m, nt, lane);
+    if constexpr (kGroups) {
+      // groups of 32 tips, the last one short
+      for (int t0 = 0; t0 < nt; t0 += 32)
+        scan_group<kW, kCorner2D>(a, m, t0, min(nt - t0, 32), lane);
+    } else {
+      // at most 32 tips: one group, a tip a lane
+      if (nt > 0) scan_group<kW, kCorner2D>(a, m, 0, nt, lane);
     }
   }
+}
+
+template <int kW, bool kCorner2D>
+void launch(const Args& a, long long blocks, bool groups,
+            cudaStream_t stream) {
+  if (groups)
+    anast_scan_kernel<kW, kCorner2D, true>
+        <<<(unsigned)blocks, kThreads, 0, stream>>>(a);
+  else
+    anast_scan_kernel<kW, kCorner2D, false>
+        <<<(unsigned)blocks, kThreads, 0, stream>>>(a);
 }
 
 }  // namespace
@@ -438,12 +473,12 @@ extern "C" int anast_scan_f32(
     const float* end, const int* gids, const float* ggeo, const int* gcount,
     const int* ov_slot, const int* ov_start, const int* ov_count,
     float* d2_out, float* tt_out, int* id_out, long long H, int cap, int g,
-    int n_slots, int gz, int window, cudaStream_t stream) {
+    int n_slots, int gz, int window, int max_tips, cudaStream_t stream) {
   if (H <= 0) return 0;
   const long long lim = 1LL << 31;   // the kernel indexes with 32 bits
   if (H >= lim || (long long)g * g * gz * cap >= lim ||
       3LL * n_slots >= lim || 2LL * window * cap * gz >= lim || gz < 1 ||
-      (window != 4 && window != 9))
+      (window != 4 && window != 9) || max_tips < 1)
     return (int)cudaErrorInvalidValue;
   static int sms = 0;
   if (sms == 0) {
@@ -462,11 +497,14 @@ extern "C" int anast_scan_f32(
          gids, reinterpret_cast<const float4*>(ggeo), gcount, ov_slot,
          ov_start, ov_count, d2_out, tt_out, id_out, (int)H, cap, g, n_slots,
          gz};
+  // max_tips: the tip table's most tips a cell (its tip_count[m] never
+  // exceeds it); above 32 the form with the loop over groups
+  const bool groups = max_tips > 32;
   if (window == 4 && gz == 1)
-    anast_scan_kernel<4, true><<<(unsigned)blocks, kThreads, 0, stream>>>(a);
+    launch<4, true>(a, blocks, groups, stream);
   else if (window == 4)
-    anast_scan_kernel<4, false><<<(unsigned)blocks, kThreads, 0, stream>>>(a);
+    launch<4, false>(a, blocks, groups, stream);
   else
-    anast_scan_kernel<9, false><<<(unsigned)blocks, kThreads, 0, stream>>>(a);
+    launch<9, false>(a, blocks, groups, stream);
   return (int)cudaGetLastError();
 }

@@ -3,6 +3,7 @@
     python -m mycelium_tpu_torch.profile_anast [--preset xlarge]
         [--steps 150] [--voxel-size V] [--three-d] [--reps 50]
         [--rounds 5]
+    python -m mycelium_tpu_torch.profile_anast --registers
 
 Grows the preset (``--three-d``: the reference 3D configuration at 2^16
 segment slots) for ``--steps`` steps on the card, builds the scan's
@@ -17,6 +18,11 @@ older checkout of the port (whose ``check_layout`` returns the face
 width alone and whose K4 takes the 2D corner window only) times that
 checkout's K4 on the same state: that is how two versions are compared
 on one card in one run, in turns.
+
+``--registers`` compiles the checkout's ``csrc/anast_scan.cu`` alone with
+the library's flags and ``-Xptxas -v`` and prints, a JSON object, each
+kernel form's registers and spill bytes as ptxas reports them (nvcc
+only, no card needed).
 """
 
 from __future__ import annotations
@@ -24,6 +30,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import re
+import subprocess
+import tempfile
 
 import torch
 
@@ -44,6 +54,33 @@ def scan_args(st, cfg) -> tuple:
     return (st.tip, tb.scan_cell, st.start, st.end, grid.ids, grid.geo,
             grid.count, cfg.max_per_cell, tb.ov_slot, tb.ov_start,
             tb.ov_count, g, st.capacity, tb.tips) + extra
+
+
+def registers() -> dict:
+    """Kernel (mangled name) -> {registers, spill_stores, spill_loads}
+    of ``csrc/anast_scan.cu`` compiled with the library's flags."""
+    from .kernels import build
+    src = os.path.join(os.path.dirname(os.path.abspath(build.__file__)),
+                       "csrc", "anast_scan.cu")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run(
+            [build._nvcc()] + build.NVCC_FLAGS + ["-Xptxas", "-v", "-c", src, "-o",
+                                         os.path.join(tmp, "a.o")],
+            capture_output=True, text=True, check=True, timeout=600)
+    forms, name = {}, None
+    for line in (out.stdout + out.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            forms.setdefault(name, {}).update(
+                spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            forms.setdefault(name, {})["registers"] = int(m.group(1))
+    return forms
 
 
 def call_ms(fn, reps: int) -> float:
@@ -68,7 +105,12 @@ def main(argv=None) -> int:
     ap.add_argument("--three-d", action="store_true")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--registers", action="store_true",
+                    help="print each kernel form's registers and spills")
     args = ap.parse_args(argv)
+    if args.registers:
+        print(json.dumps(registers()))
+        return 0
     if not torch.cuda.is_available():
         raise SystemExit("profile_anast: needs a CUDA card")
     if args.three_d:

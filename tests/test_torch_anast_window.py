@@ -20,6 +20,8 @@ Pallas kernel takes the 2D corner window only).
 - K4's order of work (by cell, the least (d², key) over runs loaded cell
   by cell), emulated on the CPU, equals the plain version bit for bit on
   every layout.
+- A 2D trajectory whose tip table holds more than 32 tips in a cell (K4
+  takes them in groups of 32) against the JAX package's, every step.
 """
 
 import dataclasses
@@ -87,8 +89,63 @@ def test_layouts():
     assert tnb.check_layout(GrowthConfig(voxel_size=0.05)) == (104, 1, 9)
     assert tnb.check_layout(growth_3d_config()) == (54, 5, 4)
     assert tnb.check_layout(growth_3d_config(voxel_size=0.05)) == (104, 7, 9)
-    with pytest.raises(NotImplementedError):
-        tnb.check_layout(GrowthConfig(max_tips_per_cell=33))
+    # K4 takes a cell's tips in groups of 32: any count a cell is a layout
+    assert tnb.check_layout(GrowthConfig(max_tips_per_cell=33)) == (54, 1, 4)
+    assert tnb.check_layout(GrowthConfig(max_tips_per_cell=48)) == (54, 1, 4)
+
+
+# More than 32 tips in one cell of the tip table: 40 hyphae from one
+# inoculum point, whose tips stay within one corner cell of 0.3 mm for the
+# first two steps (branching cut to 0.1, so that the table of 48 holds
+# them all and nothing is dropped).
+CFG_P11 = GrowthConfig(t_steps=2, dtype="float64", h0_per_point=40,
+                       p_branch=0.1, inoculum_nx=1, inoculum_ny=1,
+                       voxel_size=0.3, max_tips_per_cell=48, max_per_cell=256,
+                       dish_size=3.0, substrate_width=3.0,
+                       max_segments=1 << 11, max_hyphae=1 << 10)
+
+
+def test_more_than_32_tips_a_cell_match_reference_every_step():
+    """P11: the port grows a configuration whose tip table holds more than
+    32 tips in one cell (the plain scan; K4 takes them in groups of 32 on
+    the card) step by step as the JAX package does, integer fields equal
+    and float fields within 1e-10 of each field's largest magnitude."""
+    from mycelium_tpu_torch.growth.state import init_state
+    from mycelium_tpu_torch.growth.step import growth_step
+    cfg = CFG_P11
+    most = []
+
+    def scan(*args):
+        most.append(int(args[13][2].max()))       # the table's fullest cell
+        return anast_scan_plain(*args)
+
+    draws = JaxDraws(cfg.seed)
+    st, ea = init_state(cfg, device="cpu", draws=draws)
+    port = []
+    for _ in range(cfg.t_steps):
+        st = growth_step(st, ea, cfg, draws.step(cfg.max_hyphae,
+                                                 torch.float64, True, False),
+                         scan=scan)
+        port.append(_fields(st))
+    ref = []
+    jcfg = JGrowthConfig(**dataclasses.asdict(
+        dataclasses.replace(cfg, grid_incremental=True)))
+    jrun_growth(jcfg, on_step=lambda t, s: ref.append(_fields(s)))
+    assert len(ref) == len(port) == cfg.t_steps
+    assert min(most) > 32, most
+    snapped = []
+    for t, (j, s) in enumerate(zip(ref, port)):
+        for f in INT_FIELDS + ("n_seg", "n_hyp", "overflow"):
+            np.testing.assert_array_equal(s[f], j[f],
+                                          err_msg=f"step {t} field {f}")
+        for f in FLOAT_FIELDS:
+            scale = max(np.abs(j[f]).max(), 1e-300)
+            err = np.abs(s[f] - j[f]).max()
+            assert err <= 1e-10 * scale, (t, f, err / scale)
+        assert not s["overflow"]
+        snapped.append(int((s["state"] == ANASTOMOSED).sum()))
+    # tips snap in each step, so the scan's winners decide the trajectory
+    assert 0 < snapped[0] < snapped[1], snapped
 
 
 def test_9cell_run_growth_matches_reference_every_step():

@@ -1,10 +1,10 @@
 """The port's growth-scale and coupled bench scripts (counterparts of
 ``mycelium_tpu/bench/growth_scale.py`` and ``bench/coupled.py``) run on
 the host with ``--device cpu`` on the demo preset (growth cut to a few
-steps, the coupled ramp to 3) and print one JSON line with the JAX
-scripts' keys, the port's own (``impl``, ``device``), and numbers that
-agree with the run: the stats of the growth they time, a ramp of the
-steps asked for."""
+steps, to 40 in the coupled pipeline, the coupled ramp to 3) and print
+one JSON line with the JAX scripts' keys, the port's own (``impl``,
+``device``), and numbers that agree with the run: the stats of the growth
+they time, a ramp of the steps asked for."""
 
 import json
 import os
@@ -20,7 +20,7 @@ COUPLED_KEYS = {"metric", "value", "unit", "vs_baseline", "segments",
 
 
 def _run(module, args):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-m", module] + args, cwd=ROOT,
                          env=env, capture_output=True, text=True,
                          timeout=600)
@@ -48,8 +48,11 @@ def test_growth_scale_prints_the_jax_keys():
 
 
 def test_coupled_prints_the_jax_keys():
+    # 40 steps: the smallest demo growth whose network leaves the grips
+    # something to solve on K6's route (20 steps does not)
     rows = _run("mycelium_tpu_torch.bench.coupled",
-                ["demo", "--fea-steps", "3", "--device", "cpu"])
+                ["demo", "--steps", "40", "--fea-steps", "3", "--device",
+                 "cpu"])
     assert len(rows) == 1
     row = rows[0]
     assert COUPLED_KEYS | {"impl", "device", "build_s", "cold_solve_ms",
@@ -61,3 +64,7 @@ def test_coupled_prints_the_jax_keys():
     parts = (row["growth_s"] + row["export_s"] + row["build_s"]
              + row["fea_s"])
     assert abs(row["value"] - parts) < 1e-9
+    # the JAX script's estimate, scaled by the 40 steps grown
+    ref = 0.75 * 40 * (row["segments"] / 2000.0) \
+        + 71.76 * (row["n_dof"] / 22125.0)
+    assert abs(row["ref_extrapolated_s"] - ref) <= 1e-9 * ref

@@ -26,6 +26,7 @@ def test_package_imports_no_jax_or_triton():
         "sys.exit(1 if bad or built or len(names) < 15 else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
+    env["OMP_NUM_THREADS"] = "1"
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr

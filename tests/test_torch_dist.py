@@ -95,8 +95,9 @@ def test_cli_distributed_sharded_fea(tmp_path):
     export_geometry(str(d), sc_c[sc_e[:, 0]], sc_c[sc_e[:, 1]])
     base = [sys.executable, "-m", "mycelium_tpu_torch.cli"]
     flags = ["fea", str(d), "--device", "cpu", "--fea-steps", "6",
-             "--grip", "0.5", "--disp-max", "0.06", "--f64"]
-    env = dict(os.environ, PYTHONPATH=ROOT, MASTER_ADDR="localhost",
+             "--grip", "0.5", "--disp-max", "0.06", "--f64", "--no-plots"]
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1",
+               MASTER_ADDR="localhost",
                MASTER_PORT=str(_free_port()), WORLD_SIZE="2")
     procs = [subprocess.Popen(base + ["--distributed"] + flags
                               + ["--sharded", "2"], cwd=ROOT,
@@ -116,7 +117,8 @@ def test_cli_distributed_sharded_fea(tmp_path):
     sharded = tmp_path / "sharded"
     os.rename(fea_dir, sharded)
     one = subprocess.run(base + flags, cwd=ROOT,
-                         env=dict(os.environ, PYTHONPATH=ROOT),
+                         env=dict(os.environ, PYTHONPATH=ROOT,
+                                  OMP_NUM_THREADS="1"),
                          capture_output=True, text=True, timeout=300)
     assert one.returncode == 0, one.stderr
     for f in ("active_elements.csv", "force_displacement.csv"):

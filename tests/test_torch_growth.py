@@ -116,7 +116,7 @@ def test_run_growth_history_matches_reference(monkeypatch):
 
 
 def _cli(args, tmp_path):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, "-m", "mycelium_tpu_torch.cli"]
                           + args, cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=600)
@@ -128,7 +128,7 @@ def test_cli_grow_writes_the_growth_contract(tmp_path):
     one element per alive segment."""
     out_dir = tmp_path / "sim"
     out = _cli(["grow", "--device", "cpu", "--steps", "8", "--dir",
-                str(out_dir)], tmp_path)
+                str(out_dir), "--no-summary-plot"], tmp_path)
     assert out.returncode == 0, out.stderr
     lines = (out_dir / "mycelium_growth_stats.csv").read_text().splitlines()
     assert lines[0] == ("hyphae,segments,active_tips,passive_tips,"
@@ -145,13 +145,24 @@ def test_cli_grow_writes_the_growth_contract(tmp_path):
 
 # checkpoints (the former flag0 and flag1) are ported: their CLI cases are
 # in test_torch_ramp.py; 3D growth (the former flag3) in
-# test_torch_growth3d.py
+# test_torch_growth3d.py; PNG snapshots (flag2) in test_torch_viz.py, and
+# what is left to refuse is a plot on a machine without matplotlib
 @pytest.mark.parametrize("flag", [["--snapshots", "png"]], ids=["flag2"])
 def test_cli_grow_refuses_what_is_not_ported(flag, tmp_path):
-    out = _cli(["grow", "--device", "cpu", "--steps", "2", "--dir",
-                str(tmp_path / "x")] + flag, tmp_path)
+    """Without matplotlib a growth that would plot stops before any work:
+    no output directory, a message naming the package and the options
+    that turn plotting off."""
+    code = ("import sys; sys.modules['matplotlib'] = None; "
+            "from mycelium_tpu_torch.cli import main; main(sys.argv[1:])")
+    out = subprocess.run(
+        [sys.executable, "-c", code, "grow", "--device", "cpu", "--steps",
+         "2", "--dir", str(tmp_path / "x"), "--no-summary-plot"] + flag,
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1"),
+        capture_output=True, text=True, timeout=600)
     assert out.returncode != 0
-    assert "NotImplementedError" in out.stderr and "ROADMAP" in out.stderr
+    assert "matplotlib" in out.stderr
+    assert "--no-plots --no-summary-plot" in out.stderr
+    assert not (tmp_path / "x").exists()
 
 
 def test_cli_pipeline_grows_then_pulls(tmp_path):
@@ -160,7 +171,7 @@ def test_cli_pipeline_grows_then_pulls(tmp_path):
     out_dir = tmp_path / "sim"
     out = _cli(["pipeline", "--device", "cpu", "--steps", "10",
                 "--snapshots", "none", "--fea-steps", "4", "--dir",
-                str(out_dir)], tmp_path)
+                str(out_dir), "--no-plots", "--no-summary-plot"], tmp_path)
     assert out.returncode == 0, out.stderr
     fd = (out_dir / "fea_results" / "force_displacement.csv")
     rows = fd.read_text().splitlines()

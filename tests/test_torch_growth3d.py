@@ -201,7 +201,7 @@ def test_3d_growth_resumes_a_jax_checkpoint(tmp_path):
 
 
 def _cli(args):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, "-m", "mycelium_tpu_torch.cli"]
                           + args, cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=600)
@@ -221,7 +221,7 @@ def test_cli_grow_three_d_matches_reference(tmp_path, monkeypatch):
     steps = ["--steps", "12"]
     tdir, jdir = tmp_path / "port", tmp_path / "jax"
     tcli.main(["grow", "--three-d", "--device", "cpu", "--snapshots",
-               "none", "--dir", str(tdir)] + steps)
+               "none", "--no-summary-plot", "--dir", str(tdir)] + steps)
     jcli.main(["grow", "--three-d", "--snapshots", "none",
                "--no-summary-plot", "--dir", str(jdir)] + steps)
     name = "mycelium_growth_stats.csv"
@@ -249,7 +249,7 @@ def test_cli_pipeline_three_d_grows_then_pulls(tmp_path):
     out_dir = tmp_path / "sim"
     out = _cli(["pipeline", "--three-d", "--device", "cpu", "--steps", "12",
                 "--snapshots", "none", "--fea-steps", "4", "--dir",
-                str(out_dir)])
+                str(out_dir), "--no-plots", "--no-summary-plot"])
     assert out.returncode == 0, out.stderr
     rows = (out_dir / "fea_results" / "force_displacement.csv") \
         .read_text().splitlines()

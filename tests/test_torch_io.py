@@ -206,7 +206,7 @@ def test_native_build_is_atomic_under_concurrent_processes(tmp_path):
             "p = m.build(sys.argv[1])\n"
             "ctypes.CDLL(p).meshio_dedup_nodes\n"
             "print(p)\n")
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen([sys.executable, "-c", code, str(tmp_path)],
                               cwd=ROOT, env=env, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)

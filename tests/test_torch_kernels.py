@@ -43,7 +43,7 @@ from mycelium_tpu_torch.scenes import petri_dish
 from torch_support import (all_levels, bound_sweep_pairs,  # noqa: F401
                            cuda_device, emulate_anast_by_cell,
                            fixed_order_sums,
-                           grip_for, level0, node_sums,
+                           grip_for, level0, many_tips_case, node_sums,
                            random_forest_mesh, rel_err, scan_args,
                            synthetic_mesh, tie_state, tie_state_3d)
 
@@ -557,6 +557,40 @@ def test_growth_3d_through_anast_scan_equals_plain(cuda_device):  # noqa: F811
               "hypha", "tip"):
         assert torch.equal(getattr(st_k, f), getattr(st, f)), f
     assert not bool(st_k.overflow)
+
+
+@pytest.mark.parametrize("three_d", [False, True], ids=["corner", "column"])
+def test_anast_scan_more_than_32_tips_a_cell(three_d,
+                                             cuda_device):  # noqa: F811
+    """P11: K4 takes a cell's tips in groups of 32. A growth whose tip
+    table holds more than 40 tips in one cell (``many_tips_case``: 2D,
+    the corner form; 3D, the column form) grown through K4 equals the
+    same draws grown through its plain version, and on its last state K4's
+    (d², tt, id) equal the plain version's bit for bit."""
+    cfg, env = many_tips_case(three_d)
+    reset_launch_counts()
+    st_k, _, _ = run_growth(cfg, env=env, device=cuda_device)
+    assert launch_counts()["anast_scan"] == cfg.t_steps
+    draws = TorchDraws(cfg.seed, cuda_device)
+    st, ea = init_state(cfg, env, device=cuda_device, draws=draws)
+    for _ in range(cfg.t_steps):
+        st = growth_step(st, ea, cfg,
+                         draws.step(cfg.max_hyphae, st.sub.dtype, True,
+                                    cfg.three_d),
+                         scan=anast_scan_plain)
+    for f in ("start", "end", "theta", "phi", "sub", "state", "prev",
+              "hypha", "tip"):
+        assert torch.equal(getattr(st_k, f), getattr(st, f)), f
+    assert not bool(st_k.overflow)
+    args = scan_args(st_k, cfg)
+    assert args[-2:] == ((4, 4) if three_d else (1, 4))
+    assert int(args[13][2].max()) > 40
+    k = anast_scan(*args)
+    p = anast_scan_plain(*args)
+    torch.cuda.synchronize()
+    assert int((k[2] < st_k.capacity).sum()) > 40
+    for a, b in zip(k, p):
+        assert torch.equal(a, b)
 
 
 def _cg_case(device, n_nodes=7375, frac=0.05, basis="const", max_iter=3000):
@@ -1123,7 +1157,8 @@ def test_cli_trace_names_a_cuda_kernel(cuda_device, tmp_path):  # noqa: F811
     export_geometry(str(d), coords[conn[:, 0]], coords[conn[:, 1]])
     out = subprocess.run(
         [sys.executable, "-m", "mycelium_tpu_torch.cli", "fea", str(d),
-         "--fea-steps", "3", "--trace", str(tmp_path / "trace")], cwd=root,
+         "--fea-steps", "3", "--no-plots", "--trace",
+         str(tmp_path / "trace")], cwd=root,
         env=dict(os.environ, PYTHONPATH=root), capture_output=True,
         text=True, timeout=600)
     assert out.returncode == 0, out.stderr[-3000:]

@@ -118,10 +118,10 @@ def test_cli_fea_writes_the_records(tmp_path):
     coords, conn = random_forest_mesh(300, 6, 9)
     starts, ends = coords[conn[:, 0]], coords[conn[:, 1]]
     export_geometry(str(tmp_path), starts, ends)
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     args = [sys.executable, "-m", "mycelium_tpu_torch.cli", "fea",
             str(tmp_path), "--fea-steps", "6", "--grip", "0.1",
-            "--disp-max", "0.02"]
+            "--disp-max", "0.02", "--no-plots"]
     out = subprocess.run(args + ["--device", "cpu"], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
@@ -145,7 +145,7 @@ def test_cli_fea_writes_the_records(tmp_path):
 
 
 def _run_cli(args):
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, "-m", "mycelium_tpu_torch.cli"]
                           + args, cwd=ROOT, env=env, capture_output=True,
                           text=True, timeout=300)
@@ -154,7 +154,8 @@ def _run_cli(args):
 def test_cli_grow_checkpoint_and_resume(tmp_path):
     """``grow --checkpoint-every`` writes growth_checkpoint.npz, and
     ``--resume`` goes on from it to the unsplit run's stats and mesh."""
-    flags = ["grow", "--device", "cpu", "--snapshots", "none"]
+    flags = ["grow", "--device", "cpu", "--snapshots", "none",
+             "--no-summary-plot"]
     half, full, res = (tmp_path / d for d in ("half", "full", "res"))
     for d, extra in ((half, ["--steps", "6", "--checkpoint-every", "3"]),
                      (full, ["--steps", "12"])):
@@ -177,7 +178,7 @@ def _fea_mesh(tmp_path):
     d = tmp_path / "mesh"
     export_geometry(str(d), coords[conn[:, 0]], coords[conn[:, 1]])
     return d, ["--device", "cpu", "--fea-steps", "6", "--grip", "0.1",
-               "--disp-max", "0.02"]
+               "--disp-max", "0.02", "--no-plots"]
 
 
 def test_cli_fea_checkpoint_and_resume(tmp_path):
@@ -231,8 +232,11 @@ def test_cli_fea_sharded_and_trace(tmp_path):
 
 def test_dryrun_multichip_on_two_gloo_ranks():
     out = subprocess.run([sys.executable, "-m", "mycelium_tpu_torch.dryrun",
-                          "2"], cwd=ROOT, env=dict(os.environ,
-                                                   PYTHONPATH=ROOT),
+                          "2"], cwd=ROOT,
+                         env=dict(os.environ, PYTHONPATH=ROOT,
+                                  OMP_NUM_THREADS="1"),
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
+    assert "growth: one step on 2 ranks equals one device's in every " \
+        "field" in out.stdout
     assert "dryrun_multichip OK on 2 ranks (gloo)" in out.stdout

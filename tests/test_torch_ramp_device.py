@@ -199,14 +199,14 @@ def test_divergence_is_raised_at_sync_granularity(monkeypatch):
 def test_cli_scan_writes_the_same_records(tmp_path):
     sc = scenes.SCENES["test_I"]()
     kw = scenes.ARCHIVE_SCENE_CONFIGS["test_I"]
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     dirs = {}
     for tag, extra in (("loop", []), ("scan", ["--scan"])):
         d = tmp_path / tag
         export_geometry(str(d), sc.coords[sc.conn[:, 0]],
                         sc.coords[sc.conn[:, 1]])
         args = [sys.executable, "-m", "mycelium_tpu_torch.cli", "fea", str(d),
-                "--f64", "--device", "cpu", "--grip", "0.5",
+                "--f64", "--device", "cpu", "--no-plots", "--grip", "0.5",
                 "--disp-max", str(kw["displacement_max"])] + extra
         out = subprocess.run(args, cwd=ROOT, env=env, capture_output=True,
                              text=True, timeout=600)

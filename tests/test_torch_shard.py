@@ -13,6 +13,13 @@ intact and 30% fractured with the grip-unreachable islands pinned;
 factorization. The sharded ramp equals ``run_ramp`` to rtol 1e-7 (atol
 1e-12) with equal active records, through fracture events, and its
 checkpoint resumes to the same records.
+
+The same spawns grow JAX's sharded growth configuration
+(tests/test_shard.py:230-232) for 10 steps with the segment slots split
+over the ranks (``growth/shard.py``), and once more with a capacity that
+4 does not divide (the last block padded): every field, count, the grid
+and the stats history equal ``run_growth`` on one device bit for bit, on
+every rank.
 """
 
 import dataclasses
@@ -32,11 +39,18 @@ from mycelium_tpu_torch.fea.ramp import anchored_mask_host, run_ramp
 from mycelium_tpu_torch.fea.solve import solve_displacement
 from mycelium_tpu_torch.growth import run_growth, state_mesh
 from mycelium_tpu_torch.io.checkpoint import load_ramp_state
-from tests.torch_support import (RAMP_RECORDS, jax_coarse_in_float64,
-                                 port_config, run_ranks, scene,
-                                 shard_cases_rank, shard_ramp_rank)
+from tests.torch_support import (RAMP_RECORDS, growth_arrays,
+                                 jax_coarse_in_float64, port_config,
+                                 run_ranks, scene, shard_cases_rank,
+                                 shard_ramp_rank)
 
 RANKS = (1, 2, 4)
+# JAX's configuration of its sharded growth test (tests/test_shard.py:
+# 230-232), and the same with a capacity that 4 ranks do not divide
+GROWTH = {"jax": GrowthConfig(t_steps=10, max_segments=512, max_hyphae=256,
+                              h0_per_point=2, inoculum_nx=2, inoculum_ny=2,
+                              max_per_cell=8, dtype="float32")}
+GROWTH["padded"] = dataclasses.replace(GROWTH["jax"], max_segments=510)
 
 
 def _grown():
@@ -88,11 +102,11 @@ def cases():
 
 @pytest.fixture(scope="module")
 def sharded(cases, tmp_path_factory):
-    """Every case's sharded solve on 1, 2 and 4 ranks: one spawn a rank
-    count, every rank's results."""
+    """Every case's sharded solve and the sharded growths on 1, 2 and 4
+    ranks: one spawn a rank count, every rank's results."""
     port = {k: (c, e, port_config(cfg), *rest)
             for k, (c, e, cfg, *rest) in cases.items()}
-    return {n: run_ranks(n, shard_cases_rank, port,
+    return {n: run_ranks(n, shard_cases_rank, port, GROWTH,
                          tmp_dir=tmp_path_factory.mktemp(f"ranks{n}"))
             for n in RANKS}
 
@@ -182,3 +196,20 @@ def test_sharded_ramp_checkpoint_and_resume(tmp_path):
                     dict(resume_from=ckpt), tmp_dir=tmp_path)[0]
     for f in RAMP_RECORDS:
         np.testing.assert_array_equal(res[f], full[f], err_msg=f)
+
+
+@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("name", sorted(GROWTH))
+def test_sharded_growth_equals_run_growth(sharded, name, n):
+    """A3b: growth with the slots split over n ranks equals one device's
+    in every field bit for bit (sub and env_e included: every sum adds in
+    the single device's order), with its grid and stats, on every rank."""
+    cfg = GROWTH[name]
+    st, _, hist = run_growth(cfg, device="cpu")
+    ref = growth_arrays(st, hist)
+    assert ref["n_seg"] > cfg.n_inoculum * cfg.h0_per_point
+    assert ref["history"][-1][0] > 0      # anastomosed: the scan snapped
+    for got in sharded[n]:
+        for k, v in ref.items():
+            np.testing.assert_array_equal(got[f"growth_{name}/{k}"], v,
+                                          err_msg=k)

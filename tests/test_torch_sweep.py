@@ -111,7 +111,7 @@ def test_sweep_writer_and_no_trials(tmp_path):
 def test_cli_sweep_writes_the_results(tmp_path):
     coords, conn = scene("test_X")
     export_geometry(str(tmp_path), coords[conn[:, 0]], coords[conn[:, 1]])
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "mycelium_tpu_torch.cli", "sweep",
          str(tmp_path), "--trials", "1", "--f64", "--device", "cpu"],

@@ -14,6 +14,14 @@ import torch
 
 from mycelium_tpu_torch import meshes, scenes
 
+# The tests run under pytest-xdist, several worker processes to a machine:
+# one intra-op thread each. With PyTorch's default (a thread a core) in
+# every worker the threads contend, and the growth tests ran 3.5x slower
+# (192 s against 55 s for six of their files on 6 workers and 8 cores).
+# The tests' subprocesses get OMP_NUM_THREADS=1 for the same reason.
+# chip_smoke.py, which imports this module, keeps its own thread count.
+torch.set_num_threads(1)
+
 
 def random_forest_mesh(n_nodes=600, n_extra=12, seed=0):
     """The mesh of tests/test_tree_pc.py::random_forest_mesh (same seeds,
@@ -314,6 +322,29 @@ def emulate_chain_setup(launch, active, anchored, dy_top, dy_bot, x0, cfg):
         g = nxt.astype(f32)
     return dict(uk=uk, x=x, freem=freem, cact=cact, jact=jact, c9=c9, a=a,
                 s=sc, ainv=g)
+
+
+def many_tips_case(three_d=False, steps=2):
+    """(cfg, env) of a float32 growth whose tip table holds more than 32
+    tips in one cell in each of its first ``steps`` steps (K4 takes a
+    cell's tips in groups of 32): every hypha starts from one inoculum
+    point at the origin and the cells are 0.3 mm, so the tips stay in the
+    origin's corner column for two steps; branching is cut to 0.1 so that
+    the table of 64 a cell holds them all. In 2D 48 hyphae (the corner
+    form of K4: 42-45 tips in the fullest cell); in 3D 80 (the column
+    form, gz 4: the tips split over the two z cells at the origin, 53-54
+    in the fullest)."""
+    from mycelium_tpu_torch.config import GrowthConfig, growth_3d_config
+    kw = dict(t_steps=steps, p_branch=0.1, voxel_size=0.3,
+              max_tips_per_cell=64, max_per_cell=256,
+              max_segments=1 << 12, max_hyphae=1 << 11)
+    if three_d:
+        cfg = growth_3d_config(h0_per_point=80, **kw)
+    else:
+        cfg = GrowthConfig(h0_per_point=48, inoculum_nx=1, inoculum_ny=1,
+                           dish_size=3.0, substrate_width=3.0, **kw)
+    env = scenes.petri_dish(cfg)._replace(inoculum=np.zeros((1, 3)))
+    return cfg, env
 
 
 def tie_state(device="cpu", n_pairs=160, n_mirror=40, seed=5):
@@ -774,7 +805,7 @@ def emulate_anast_by_cell(args, ties=None, z_major=False):
     (tip, cell, start, end, gids, ggeo, gcount, cap, ov_slot, ov_start,
      ov_count, g, N, tips, gz, window) = [x.cpu() if torch.is_tensor(x)
                                          else x for x in args]
-    order, tstart, tcount = (t.cpu() for t in tips)
+    order, tstart, tcount = (t.cpu() for t in tips[:3])
     H = tip.shape[0]
     d2 = torch.full((H,), float("inf"))
     tt = torch.zeros(H)
@@ -956,17 +987,47 @@ def shard_ramp_rank(coords, conn, cfg, kw=None):
     return {k: getattr(res, k) for k in RAMP_RECORDS}
 
 
-def shard_cases_rank(cases):
+GROWTH_FIELDS = ("start", "end", "theta", "phi", "sub", "state", "prev",
+                 "hypha", "tip", "env_e", "overflow")
+
+
+def growth_arrays(st, hist):
+    """A growth state's fields, counts, grid and stats history as numpy
+    arrays (what a rank sends back)."""
+    out = {f: getattr(st, f).cpu().numpy() for f in GROWTH_FIELDS}
+    out.update(n_seg=st.n_seg, n_hyp=st.n_hyp, step=st.step,
+               grid_ids=st.grid.ids.cpu().numpy(),
+               grid_count=st.grid.count.cpu().numpy(),
+               grid_geo=st.grid.geo.cpu().numpy(),
+               history=np.array([[row[k] for k in sorted(row)]
+                                 for row in hist], np.float64))
+    return out
+
+
+def shard_growth_rank(cfg):
+    """One rank of the sharded growth of ``cfg`` on the CPU: the whole
+    state, gathered from the ranks' blocks, and the stats history."""
+    from mycelium_tpu_torch.growth.shard import (SlotBlocks, gathered,
+                                                 run_growth_sharded)
+    st_l, _, hist = run_growth_sharded(cfg, device="cpu")
+    return growth_arrays(gathered(st_l, SlotBlocks(cfg.max_segments)), hist)
+
+
+def shard_cases_rank(cases, growth=None):
     """One rank of the sharded solves of ``cases`` (name -> coords, conn,
     cfg, active, dy, anchored, with_factor) on the CPU: per case its x and
     iterations, and with a factor the same solve with a precomputed
-    factorization."""
+    factorization; then the sharded growth of each configuration of
+    ``growth`` (name -> GrowthConfig), ``shard_growth_rank``'s arrays."""
     out = {}
     for name, (coords, conn, cfg, active, dy, anchored, fac) in \
             cases.items():
         res = shard_solve_rank(coords, conn, cfg, active, dy, anchored, fac)
         assert bool(res["converged"]), name
         out.update({f"{name}/{k}": v for k, v in res.items()})
+    for name, cfg in (growth or {}).items():
+        out.update({f"growth_{name}/{k}": v
+                    for k, v in shard_growth_rank(cfg).items()})
     return out
 
 
