@@ -151,6 +151,17 @@ fails:
    (STALL_LIMIT on the hybrid), ``bytes_total`` positive and finite,
    ``cg_iters`` at least 1; the mesh generation and plan build times of
    each size and the phase's wall time;
+17. the headline, counts set to 0 before and read after:
+   ``bench/headline.py::run`` at its defaults, the port of the root
+   ``bench.py``: the 22,125-DOF cold-solve median (16 solves a window, 5
+   windows), the 309k-DOF cold solve (``scaling_size``) and the 309k-DOF
+   40-step ``run_ramp_async`` (one untimed, the median of 3), its JSON
+   line printed before the kernels' line; both solves and the ramp on the
+   route ``tree_cg``, K6's launches equal to what the loops imply, the
+   22k solve's float64 residual within K6_LIMIT, every ramp step
+   converged and 1 to 40 steps recorded, every number finite and
+   positive; then where the ramp's time goes (solves, ``post_solve``,
+   reachability refreshes, the rest);
 15. every reading that traces the card (each kernel's ``device_ms``, K5's
    and K6's time by iteration cap, the device operations and host syncs of
    a K5, a K6 and each sharded solve, the NCCL kernels' device time, K5's
@@ -164,8 +175,9 @@ none it exits non-zero and prints no result. No JAX is imported.
 
 Time: the whole run must end within 1200 s, the kernels' build included;
 phases 4 and 8 (K5 and the sweep) have a budget of 90 s of it. On an
-H100 the run took 181-189 s with phases 11a-11d and 14a, and 183 s with
-phase 16 (22 s of it, 11 s the 1M-node mesh's generation on the host).
+H100 the run took 181-189 s with phases 11a-11d and 14a, 183-209 s with
+phase 16 (22-46 s of it, 11 s the 1M-node mesh's generation on the host)
+and 249 s with phase 17 (2.5 s of it).
 """
 
 from __future__ import annotations
@@ -1573,8 +1585,9 @@ def compare_chain_cg(model, conn, cfg, device, rng, barrier_us) -> dict:
     floor = barrier_count(nc, ik) * us * 1e-3
     log(f"K5 time call {ms:.4f} ms a solve ({ik} iterations, "
         f"{ms * 1e3 / max(ik, 1):.2f} us an iteration; plain on the CPU "
-        f"{pms:.4f} ms, bound {b5[0]:.5f} ms by {b5[1]}: {io / 2**20:.3f} "
-        f"MiB, {ops / 1e6:.3f} Mop; latency floor {floor:.4f} ms: "
+        f"{pms:.4f} ms, bound {b5[0]:.6f} ms by {b5[1]}: {io:,} B "
+        f"({bound(io, 0)[0]:.6f} ms), {ops:,} op ({bound(0, ops)[0]:.6f} "
+        f"ms); latency floor {floor:.4f} ms: "
         f"{barrier_count(nc, ik)} barriers at {us:.3f} us)")
     row = dict(name="chain_cg", route="cuda",
                source="mycelium_tpu_torch/kernels/csrc/chain_cg.cu",
@@ -1739,6 +1752,7 @@ def compare_tree_cg(model, conn, cfg, device, rng, size: str,
       within 1, and two launches bit-equal (no float atomics in the
       kernel)."""
     import torch
+    from mycelium_tpu_torch.bench.roofline import solver_traffic_bytes
     from mycelium_tpu_torch.devices import moved
     from mycelium_tpu_torch.fea.ramp import anchored_mask_host
     from mycelium_tpu_torch.kernels.tree_cg import barrier_count
@@ -1824,14 +1838,18 @@ def compare_tree_cg(model, conn, cfg, device, rng, size: str,
     pms = timed_ms(lambda: launch.plain(*args), device, 1)
     io, ops, stream = tree_cg_work(model, ik)
     b6 = bound(io, ops)
+    # bench/roofline.py's count of the same solve: every iteration's
+    # vectors and coefficients streamed through memory, set-up included
+    counted = solver_traffic_bytes(model, ik)["bytes_total"]
     grid = launch.grid if device.type == "cuda" else 0
     L = len(tk.windowed)
     fac_bar = barrier_count(tk, 0) - 1 - (2 * L - 1)
     log(f"K6 time call {ms:.4f} ms a solve ({ik} iterations; plain "
-        f"{pms:.4f} ms, bound {b6[0]:.5f} ms by {b6[1]}: {io / 2**20:.3f} "
-        f"MiB of inputs and tables, {ops / 1e6:.3f} Mop; streaming every "
-        f"phase's {stream / 2**20:.3f} MiB from memory "
-        f"{bound(stream, 0)[0]:.5f} ms); grid {grid} blocks, "
+        f"{pms:.4f} ms, bound {b6[0]:.6f} ms by {b6[1]}: {io:,} B of "
+        f"inputs and tables ({bound(io, 0)[0]:.6f} ms), {ops:,} op "
+        f"({bound(0, ops)[0]:.6f} ms); streaming every phase's {stream:,} "
+        f"B from memory {bound(stream, 0)[0]:.6f} ms; bench/roofline.py's "
+        f"{counted:,} B {bound(counted, 0)[0]:.6f} ms); grid {grid} blocks, "
         f"{barrier_count(tk, ik)} barriers a solve, {fac_bar} of them to "
         f"factor {L} levels")
     if all(tk.windowed) and fac_bar > 3 * L:
@@ -1841,6 +1859,8 @@ def compare_tree_cg(model, conn, cfg, device, rng, size: str,
                replaces="mycelium_tpu/fea/pallas_tree.py:397",
                max_abs_err=err_max, ms=ms, plain_ms=pms, bound_ms=b6[0],
                bound_by=b6[1], library_ms=None,
+               stream_bound_ms=bound(stream, 0)[0],
+               roofline_bound_ms=bound(counted, 0)[0],
                barriers=barrier_count(tk, ik), grid=grid)
     defer_device_ms(f"K6 {size}", row, lambda: launch.solve(*args), 20)
 
@@ -2499,6 +2519,155 @@ def scaling_path(device, sizes, rng) -> tuple:
                 k6_max_abs_err=k6_err), total
 
 
+# run_ramp_async's status read: every 8 steps (its sync_every default)
+RAMP_SYNC_EVERY = 8
+
+
+def ramp_solves(res, n_steps: int) -> int:
+    """The solves ``fea/ramp.py::_device_ramp`` issued for the ramp ``res``
+    of ``run_ramp_async``: every step unless the network fractured through.
+    Then its records end at the step that broke the last element, but the
+    ramp solved on to its next status read (a multiple of RAMP_SYNC_EVERY
+    steps, at most n_steps), so a truncated ramp may still have solved
+    every step."""
+    n_rec = res.force_disp.shape[0]
+    if res.active_record[-1].any():
+        return n_steps
+    return min(n_steps, -(-n_rec // RAMP_SYNC_EVERY) * RAMP_SYNC_EVERY)
+
+
+def ramp_refreshes(res) -> int:
+    """The grip-reachability refreshes of a ramp: one at its start and one
+    after each step whose active mask differs from the step before."""
+    prev = np.ones(res.active_record.shape[1], bool)
+    n = 1
+    for act in res.active_record:
+        n += int(not np.array_equal(act, prev))
+        prev = act
+    return n
+
+
+def ramp_solve_ms(model, cfg, res, device) -> list:
+    """Milliseconds of each recorded step's solve of the ramp ``res``,
+    replayed on its own inputs: the step's active mask (the step before's
+    record), its grip reachability and its warm start (the step before's
+    displacement scaled as the ramp scales it), timed with CUDA events
+    (the mean of 3 calls after one)."""
+    import torch
+    from mycelium_tpu_torch.fea.ramp import refresh_anchored
+    from mycelium_tpu_torch.fea.solve import solve_displacement
+    out, act_np = [], None
+    for step in range(res.force_disp.shape[0]):
+        prev = np.ones(model.n_elems, bool) if step == 0 \
+            else res.active_record[step - 1]
+        if act_np is None or not np.array_equal(prev, act_np):
+            act_np = prev
+            act = torch.as_tensor(act_np, device=device)
+            anch = refresh_anchored(model, act)
+        dy = cfg.displacement_max * step / (cfg.n_steps - 1)
+        if cfg.warm_start and step > 1:
+            x0 = torch.as_tensor(res.disp_record[step - 1].reshape(-1, 3)
+                                 * (step / (step - 1)), device=device)
+        else:
+            x0 = torch.zeros((model.n_nodes, 3), dtype=model.dtype,
+                             device=device)
+        out.append(timed_ms(lambda: solve_displacement(
+            model, act, dy, -dy, x0, cfg, anch), device, 3))
+    return out
+
+
+def headline_path(device, n_small: int, n_big: int) -> tuple:
+    """Phase 17, the headline: ``bench/headline.py::run`` on meshes of
+    ``n_small`` and ``n_big`` nodes (its defaults in the card run: the 22k
+    cold-solve median, the 309k cold solve and the 309k 40-step ramp), the
+    launch counts set to 0 before and read after. Checks: both
+    solves on the route ``tree_cg`` and the ramp's model too; K6's launches
+    equal what the loops imply (the 22k timing's warm-up and windows,
+    ``scaling_size``'s at 309k, and each ramp's ``ramp_solves``); the 22k
+    headline solve's float64 residual, by the port's ``assemble_scipy``,
+    within K6_LIMIT; every ramp converged at every step (``run_ramp_async``
+    raises on a step that did not) and recorded 1 to n_steps steps; every
+    number of the row finite and positive. Then where the ramp's time goes,
+    synchronised readings on the ramp's model: its recorded steps' solves
+    (``ramp_solve_ms``), ``post_solve`` once a solve, the reachability
+    refreshes (timed on the last ramp's final mask) and the rest (record
+    writes, flag reads, the records' fetch, solves past the records).
+    Returns (a summary, the phase's counts)."""
+    import math
+    import torch
+    from mycelium_tpu_torch.bench import headline, scaling
+    from mycelium_tpu_torch.fea.ramp import post_solve, refresh_anchored
+    from mycelium_tpu_torch.fea.solve import solve_route
+    from mycelium_tpu_torch.kernels import launch_counts, reset_launch_counts
+    if os.environ.pop(headline.SMALL_ENV, None) is not None:
+        log(f"headline: {headline.SMALL_ENV} ignored, the phase runs every "
+            "part")
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    h = headline.run(device, n_small, n_big)
+    sync(device)
+    counts = launch_counts()
+    wall = time.perf_counter() - t0
+    row, model, cfg = h.row, h.ramp_model, h.ramp_cfg
+    log(f"headline: {json.dumps(row)}")
+    routes = dict(route=row["route"], route_309k=row["route_309k"],
+                  ramp_route_309k=solve_route(model, cfg))
+    solves = [ramp_solves(r, cfg.n_steps) for r in h.ramps]
+    want = (headline.WARM + headline.WINDOWS * headline.N_CHAIN
+            + scaling.WARM_CALLS + scaling.WINDOWS * headline.BIG_CHAIN
+            + sum(solves))
+    steps = [int(r.force_disp.shape[0]) for r in h.ramps]
+    s = h.solve
+    rel = residual_check(s.model, h.coords, h.conn, s.cfg,
+                         s.x.double().cpu().numpy(), s.cfg.displacement_max,
+                         s.active.cpu().numpy(), s.anchored.cpu().numpy())
+    others = {k: v for k, v in counts.items() if v and k != "tree_cg"}
+    log(f"headline: routes {routes}; K6 launches {counts['tree_cg']} "
+        f"(the loops imply {want}: 22k {headline.WARM} + "
+        f"{headline.WINDOWS}x{headline.N_CHAIN}, 309k {scaling.WARM_CALLS} "
+        f"+ {scaling.WINDOWS}x{headline.BIG_CHAIN}, ramps {solves}); other "
+        f"launches {others}; ramp steps {steps}; 22k float64 residual "
+        f"{rel:.3e} (bound {K6_LIMIT:.1e}); phase wall {wall:.2f} s")
+    bad = [f"{k} {v}" for k, v in routes.items() if v != "tree_cg"]
+    if device.type == "cuda" and counts["tree_cg"] != want:
+        bad.append(f"K6 launched {counts['tree_cg']} times, not {want}")
+    if not rel <= K6_LIMIT:
+        bad.append(f"22k float64 residual {rel:.3e} > {K6_LIMIT:.1e}")
+    if not all(1 <= n <= cfg.n_steps for n in steps) \
+            or row["ramp_steps_309k"] != steps[-1]:
+        bad.append(f"ramp steps {steps}, ramp_steps_309k "
+                   f"{row['ramp_steps_309k']}")
+    nums = {k: v for k, v in row.items()
+            if isinstance(v, (int, float)) and not isinstance(v, bool)}
+    bad += [f"{k} {v}" for k, v in nums.items()
+            if not (math.isfinite(v) and v > 0)]
+    if bad:
+        raise AssertionError(f"headline: {bad}")
+
+    # where the ramp's time goes
+    last = h.ramps[-1]
+    act = torch.ones(model.n_elems, dtype=torch.bool, device=device)
+    final = torch.as_tensor(last.active_record[-1], device=device)
+    u = torch.zeros((model.n_nodes, 3), dtype=model.dtype, device=device)
+    post_ms = timed_ms(lambda: post_solve(model, cfg, u, act), device, 10)
+    refresh_ms = timed_ms(lambda: refresh_anchored(model, final), device, 5)
+    n_refresh = ramp_refreshes(last)
+    step_ms = ramp_solve_ms(model, cfg, last, device)
+    parts = dict(solves=sum(step_ms) / 1e3,
+                 post_solve=solves[-1] * post_ms / 1e3,
+                 refreshes=n_refresh * refresh_ms / 1e3)
+    parts["rest"] = h.ramp_s - sum(parts.values())
+    split = dict(ramp_s=h.ramp_s, steps=steps[-1], solves=solves[-1],
+                 refreshes=n_refresh, post_solve_ms=post_ms,
+                 refresh_ms=refresh_ms,
+                 fractured=int((~last.active_record[-1]).sum()),
+                 cg_iters=last.cg_iters.tolist(), solve_ms=step_ms,
+                 parts_s=parts)
+    log(f"headline ramp split: {json.dumps(split)}")
+    return dict(row=row, ms=h.ms, residual_22k=rel, wall_s=wall,
+                k6_launches_implied=want, ramp=split), counts
+
+
 def run(device, n_small: int = 7375, n_big: int = 103000,
         big_growth: str = "xlarge", growth_steps: int = GROWTH_STEPS,
         trajectory: str = "demo", coupled: str = "medium",
@@ -2734,6 +2903,9 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     scaling, scaling_counts = scaling_path(device, scaling_nodes, rng)
     k6_row["max_abs_err"] = max(k6_row["max_abs_err"],
                                 scaling["k6_max_abs_err"])
+    # the headline: bench/headline.py at its defaults, before every traced
+    # reading (P4)
+    head, head_counts = headline_path(device, n_small, n_big)
     # each kernel's launches are read on the path that is its own, and
     # every path must have launched what it is said to run
     hyb = ("chain_matvec", "pcr_factor", "pcr_apply", "ordered_sum")
@@ -2750,7 +2922,7 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
              "coupled": pipe_counts, "checkpoint": ckpt_counts,
              "sharded": shard_counts, "p11": p11_counts,
              "sharded_growth": shard_growth_counts,
-             "scaling": scaling_counts}
+             "scaling": scaling_counts, "headline": head_counts}
     for row in rows:
         row["path"], counts = own[row["name"]]
         row["launches"] = counts[row["name"]]
@@ -2772,6 +2944,7 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
             ("sharded_growth", shard_growth_counts))
             if c["anast_scan"] < 1]
         missing += ["pipeline_3d tree_cg"] * (p3_counts["tree_cg"] < 1)
+        missing += ["headline tree_cg"] * (head_counts["tree_cg"] < 1)
         missing += [f"sharded {k}" for k in ("pcr_factor", "pcr_apply",
                                              "ordered_sum")
                     if shard_counts[k] < 1]
@@ -2796,7 +2969,7 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
                 ramp_fractured_22k=fractured, solve_ms_309k=ms309,
                 iters_309k=it309, hybrid_ms_309k=hyb309,
                 hybrid_iters_309k=hyb_it309, hybrid_apply_309k=hyb_apply,
-                forest_oracle_22k=oracle22, scaling=scaling,
+                forest_oracle_22k=oracle22, scaling=scaling, headline=head,
                 sweep=sweep, growth=growth, growth_3d=growth3d,
                 growth_9cell=growth9, pipeline_3d=pipe3d,
                 coupled=pipe, checkpoints=ckpt, sharded=shard,
@@ -2819,6 +2992,7 @@ def main() -> int:
     torch.cuda.synchronize()
     summary = {k: v for k, v in out.items() if k != "kernels"}
     log(f"summary: {json.dumps(summary)}")
+    print(json.dumps(out["headline"]["row"]))
     print(card)
     print(json.dumps({"kernels": out["kernels"]}))
     print(json.dumps({"ok": True, "device": {

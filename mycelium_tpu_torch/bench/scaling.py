@@ -59,6 +59,7 @@ class ScalingSolve(NamedTuple):
     active: torch.Tensor
     anchored: torch.Tensor
     x: torch.Tensor           # (N, 3), a copy of the solve's result
+    iters: int
 
 
 def scaling_config(coords, rtol: float = 1e-6):
@@ -71,14 +72,35 @@ def scaling_config(coords, rtol: float = 1e-6):
                      grip_length=0.3 * ext)
 
 
+def timed_cold_solves(model, cfg, dy: float, reps: int, windows: int,
+                      warm: int) -> tuple:
+    """(median ms a cold solve, ``ScalingSolve`` of the last one): the
+    full-pull system of ``model`` (grips at +``dy`` / -``dy``, every
+    element active, the grips' anchored mask, x0 zero) solved ``warm``
+    times, then ``windows`` windows of ``reps`` back-to-back cold
+    ``solve_displacement`` calls (``utils.profiling.window_ms``)."""
+    from ..fea.ramp import anchored_mask_host
+    from ..fea.solve import solve_displacement
+    device = model.device
+    grip = (model.top_nodes | model.bot_nodes).cpu().numpy()
+    anchored = torch.as_tensor(anchored_mask_host(
+        model.conn.cpu().numpy(), np.ones(model.n_elems, bool), grip),
+        device=device)
+    active = torch.ones(model.n_elems, dtype=torch.bool, device=device)
+    x0 = torch.zeros((model.n_nodes, 3), dtype=model.dtype, device=device)
+    ms, res = window_ms(
+        lambda: solve_displacement(model, active, dy, -dy, x0, cfg,
+                                   anchored), reps, device, windows, warm)
+    return ms, ScalingSolve(model, cfg, active, anchored, res.x.clone(),
+                            int(res.iters))
+
+
 def scaling_size(coords, conn, n_chain: int = 8, rtol: float = 1e-6,
                  device=DEFAULT_DEVICE):
     """One size, on the mesh (``coords``, ``conn``): (the row,
     ``ScalingSolve``)."""
     from ..fea.model import build_model
-    from ..fea.ramp import anchored_mask_host
-    from ..fea.solve import (compute_tree_factor, solve_displacement,
-                             solve_route)
+    from ..fea.solve import compute_tree_factor, solve_route
     from .roofline import roofline_row
     device = resolve(device)
     cfg = scaling_config(coords, rtol)
@@ -87,32 +109,25 @@ def scaling_size(coords, conn, n_chain: int = 8, rtol: float = 1e-6,
     model = build_model(coords, conn, cfg, device)
     sync(device)
     build_s = time.perf_counter() - t0
-    grip = (model.top_nodes | model.bot_nodes).cpu().numpy()
-    anchored = torch.as_tensor(anchored_mask_host(
-        conn, np.ones(model.n_elems, bool), grip), device=device)
-    active = torch.ones(model.n_elems, dtype=torch.bool, device=device)
-    x0 = torch.zeros((model.n_nodes, 3), dtype=model.dtype, device=device)
     route = solve_route(model, cfg)
 
-    solve_ms, res = window_ms(
-        lambda: solve_displacement(model, active, DY, -DY, x0, cfg,
-                                   anchored), n_chain, device, WINDOWS,
-        WARM_CALLS)
+    solve_ms, s = timed_cold_solves(model, cfg, DY, n_chain, WINDOWS,
+                                    WARM_CALLS)
     row = {
         "n_dof": model.n_dof,
         "solve_ms": solve_ms,
         "solves_per_sec": 1e3 / solve_ms,
-        "cg_iters": int(res.iters),
+        "cg_iters": s.iters,
         "plan_build_s": build_s,
     }
     if route == "hybrid":
         row["factor_ms"] = window_ms(
-            lambda: compute_tree_factor(model, active, cfg, anchored),
+            lambda: compute_tree_factor(model, s.active, cfg, s.anchored),
             n_chain, device, WINDOWS, WARM_CALLS)[0]
     row["route"] = route
     row.update(roofline_row(model, row["cg_iters"], solve_ms / 1e3))
     row.update(impl="torch", device=device_name(device))
-    return row, ScalingSolve(model, cfg, active, anchored, res.x.clone())
+    return row, s
 
 
 def run(n_nodes_list, n_chain: int = 8, rtol: float = 1e-6,

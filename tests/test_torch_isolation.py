@@ -59,6 +59,7 @@ sys.exit(1 if bad else 0)
 
 
 @pytest.mark.parametrize("module", ["bench.scaling", "bench.roofline",
+                                    "bench.headline",
                                     "fea.assemble"])
 def test_scaling_roofline_and_assembly_stand_alone(module):
     """Each of the port's oracles and bench modules, imported alone into a
