@@ -286,6 +286,8 @@ def device_ms(fn, device, reps: int) -> float:
     if device.type != "cuda":
         return timed_ms(fn, device, reps)
     from torch.profiler import ProfilerActivity, profile
+
+    from mycelium_tpu_torch.utils.profiling import device_ops
     fn()
     torch.cuda.synchronize()
     # a window now and then comes back empty (seen once in four runs on
@@ -295,9 +297,7 @@ def device_ms(fn, device, reps: int) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.device_time for e in prof.events()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not e.name.startswith("ProfilerStep"))
+        total = sum(e.device_time for e in device_ops(prof))
         if total > 0:
             return total / 1e3 / reps
         log("the profiler saw no device time in a window: tracing again")

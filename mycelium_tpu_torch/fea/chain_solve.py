@@ -20,6 +20,7 @@ reference passes one block per cluster to its kernel, which agrees while
 from __future__ import annotations
 
 from ..kernels.chain_cg import chain_cg_setup_plain, layout_of
+from ..utils.profiling import host_span
 from .solve import SolveResult
 
 
@@ -46,6 +47,7 @@ def chain_cg_solve(model, active, dy_top: float, dy_bot: float, x0, cfg,
     after (``kernels.ChainCgLaunch``)."""
     x, stats = model.chain_launch.solve(active, anchored, dy_top, dy_bot, x0,
                                         cfg)
-    iters, rnorm, tol = stats.tolist()
+    with host_span("fea.sync.stats"):
+        iters, rnorm, tol = stats.tolist()
     return SolveResult(x=x, iters=int(iters), resnorm=rnorm,
                        converged=rnorm <= tol)

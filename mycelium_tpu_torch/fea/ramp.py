@@ -25,6 +25,11 @@ tensors written by step index and fetch them once at the end; what they
 still read on the host each step is the solve's three stats (one read, in
 ``solve_displacement``) and one ``changed`` flag, plus one flag a trip of
 the reachability fixpoint after a fracture.
+
+Under a profiler the loops hold the spans of ``utils.profiling``: a pull
+test (``fea.ramp``), the refresh and each of its trips, ``post_solve``,
+each host read (``fea.sync.*``) and the records' writes and fetches
+(``fea.records.*``); ``solve_displacement`` holds its own.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from ..devices import DEFAULT_DEVICE
+from ..utils.profiling import span
 from .elements import element_strain
 from .model import FeaModel, apply_stiffness, build_model
 from .solve import compute_tree_factor, solve_displacement, solve_route
@@ -91,9 +97,12 @@ def anchored_mask_device(model: FeaModel, active):
     link_ok = torch.cat([active.to(torch.bool), false1])[model.incident]
     anch = grip
     while True:
-        nb = torch.cat([anch, false1])[model.neighbor] & link_ok
-        new = grip | nb.any(dim=1)
-        if not bool((new != anch).any()):
+        with span("fea.refresh.trip"):
+            nb = torch.cat([anch, false1])[model.neighbor] & link_ok
+            new = grip | nb.any(dim=1)
+            with span("fea.sync.trip"):
+                changed = bool((new != anch).any())
+        if not changed:
             return new
         anch = new
 
@@ -101,10 +110,11 @@ def anchored_mask_device(model: FeaModel, active):
 def refresh_anchored(model: FeaModel, active):
     """The grip reachability of ``active`` on the model's device: the
     tree-accelerated sweep where the model has a forest."""
-    if model.tree_fast is not None:
-        from .tree_factor import tree_anchored
-        return tree_anchored(model.tree, model, active)
-    return anchored_mask_device(model, active)
+    with span("fea.refresh"):
+        if model.tree_fast is not None:
+            from .tree_factor import tree_anchored
+            return tree_anchored(model.tree, model, active)
+        return anchored_mask_device(model, active)
 
 
 def keeps_factor(model: FeaModel, cfg) -> bool:
@@ -116,14 +126,15 @@ def keeps_factor(model: FeaModel, cfg) -> bool:
 
 def post_solve(model: FeaModel, cfg, u, active):
     """Reactions -> stress -> fracture for a solved displacement field."""
-    f_react = apply_stiffness(model, u, active,
-                              "scatter" if cfg.operator == "scatter"
-                              else "ell")
-    total_force = torch.where(model.top_nodes, f_react[:, 1], 0.0).sum()
-    strain = element_strain(u, model.conn, model.geom)
-    stress = torch.where(active, cfg.e_mod * strain, 0.0)
-    active_new = active & (strain.abs() <= cfg.max_strain)
-    return stress, active_new, total_force
+    with span("fea.post_solve"):
+        f_react = apply_stiffness(model, u, active,
+                                  "scatter" if cfg.operator == "scatter"
+                                  else "ell")
+        total_force = torch.where(model.top_nodes, f_react[:, 1], 0.0).sum()
+        strain = element_strain(u, model.conn, model.geom)
+        stress = torch.where(active, cfg.e_mod * strain, 0.0)
+        active_new = active & (strain.abs() <= cfg.max_strain)
+        return stress, active_new, total_force
 
 
 def ramp_step(model: FeaModel, cfg, active, x0, dy_top: float,
@@ -191,7 +202,7 @@ class _Records:
             force_disp=np.asarray(self.fd, dtype=np.float64),
             solve_seconds=np.asarray(self.secs),
             cg_iters=np.asarray(self.iters, dtype=np.int64),
-            total_seconds=time.time() - t0)
+            total_seconds=time.perf_counter() - t0)
 
 
 def _ramp_start(model: FeaModel, cfg, recs: _Records,
@@ -240,15 +251,16 @@ def _loop_ramp(model: FeaModel, cfg, step_fn, use_fac: bool,
             x0 = u_prev * (factor / prev_factor)
         else:
             x0 = torch.zeros_like(u_prev)
-        ts = time.time()
+        ts = time.perf_counter()
         u, stress, active_new, total_force, iters, resnorm, converged = \
             step_fn(active, x0, dy_top, dy_bot, anchored, fac)
         _check_converged(converged, step, resnorm)
-        secs = time.time() - ts
+        secs = time.perf_counter() - ts
 
-        active_new_np = active_new.cpu().numpy()
-        recs.add(stress, active_new_np, u, dy_top - dy_bot,
-                 float(total_force), secs, iters)
+        with span("fea.records.fetch"):
+            active_new_np = active_new.cpu().numpy()
+            recs.add(stress, active_new_np, u, dy_top - dy_bot,
+                     float(total_force), secs, iters)
 
         if not np.array_equal(active_new_np, active_np):
             # fracture changed the topology: refresh grip reachability and
@@ -282,7 +294,7 @@ def run_ramp(coords, conn, cfg, device=DEFAULT_DEVICE,
     ``resume_from`` goes on from such a file: the grip reachability and
     the factorization are rebuilt from its mask and the warm start comes
     from its displacement, so the records equal the unsplit run's."""
-    t0 = time.time()
+    t0 = time.perf_counter()
     if model is None:
         model = build_model(coords, conn, cfg, device)
 
@@ -290,9 +302,10 @@ def run_ramp(coords, conn, cfg, device=DEFAULT_DEVICE,
         return ramp_step(model, cfg, active, x0, dy_top, dy_bot, anchored,
                          fac)
 
-    return _loop_ramp(model, cfg, step_fn, keeps_factor(model, cfg),
-                      checkpoint_path, checkpoint_every,
-                      resume_from).result(t0)
+    with span("fea.ramp"):
+        return _loop_ramp(model, cfg, step_fn, keeps_factor(model, cfg),
+                          checkpoint_path, checkpoint_every,
+                          resume_from).result(t0)
 
 
 def run_ramp_sharded(coords, conn, cfg, device=DEFAULT_DEVICE,
@@ -310,7 +323,7 @@ def run_ramp_sharded(coords, conn, cfg, device=DEFAULT_DEVICE,
     rank. The checkpoint arguments are ``run_ramp``'s; only the
     coordinator writes."""
     from .shard import sharded_cg_solver
-    t0 = time.time()
+    t0 = time.perf_counter()
     if model is None:
         model = build_model(coords, conn, cfg, device)
     solver = sharded_cg_solver(model, cfg, group)
@@ -323,8 +336,9 @@ def run_ramp_sharded(coords, conn, cfg, device=DEFAULT_DEVICE,
                 res.resnorm, res.converged)
 
     use_fac = cfg.precond == "tree" and model.tree_fast is not None
-    return _loop_ramp(model, cfg, step_fn, use_fac, checkpoint_path,
-                      checkpoint_every, resume_from).result(t0)
+    with span("fea.ramp"):
+        return _loop_ramp(model, cfg, step_fn, use_fac, checkpoint_path,
+                          checkpoint_every, resume_from).result(t0)
 
 
 def truncate_after_fracture(res: RampResult) -> RampResult:
@@ -373,11 +387,11 @@ def _device_ramp(model: FeaModel, cfg, sync_every: int, early_stop: bool):
     status_b = torch.zeros((n_steps, 4), dtype=torch.float64, device=dev)
 
     secs = np.zeros((n_steps,))
-    chunk_lo, chunk_t0 = 0, time.time()
+    chunk_lo, chunk_t0 = 0, time.perf_counter()
 
     def close_chunk(hi):
         nonlocal chunk_lo, chunk_t0
-        now = time.time()
+        now = time.perf_counter()
         if hi > chunk_lo:
             secs[chunk_lo:hi] = (now - chunk_t0) / (hi - chunk_lo)
         chunk_lo, chunk_t0 = hi, now
@@ -393,27 +407,32 @@ def _device_ramp(model: FeaModel, cfg, sync_every: int, early_stop: bool):
             x0 = torch.zeros_like(u_prev)
         u, stress, active_new, total_force, iters, _, converged = ramp_step(
             model, cfg, active, x0, dy_top, dy_bot, anchored, fac)
-        stress_b[step] = stress
-        active_b[step] = active_new
-        disp_b[step] = u.reshape(-1)
-        status_b[step, 0] = float(converged)
-        status_b[step, 1] = active_new.sum()
-        status_b[step, 2] = float(iters)
-        status_b[step, 3] = total_force
+        with span("fea.records.write"):
+            stress_b[step] = stress
+            active_b[step] = active_new
+            disp_b[step] = u.reshape(-1)
+            status_b[step, 0] = float(converged)
+            status_b[step, 1] = active_new.sum()
+            status_b[step, 2] = float(iters)
+            status_b[step, 3] = total_force
         # the refresh is data-dependent: one flag a step
-        if bool((active_new != active).any()):
+        with span("fea.sync.flag"):
+            changed = bool((active_new != active).any())
+        if changed:
             anchored = refresh_anchored(model, active_new)
             if use_fac:
                 fac = compute_tree_factor(model, active_new, cfg, anchored)
         u_prev, active, prev_factor = u, active_new, factor
         done = step + 1
         if sync_every > 0 and done % sync_every == 0 and done < n_steps:
-            status = status_b.cpu().numpy()
+            with span("fea.sync.status"):
+                status = status_b.cpu().numpy()
             close_chunk(done)
             _check_status(status, done)
             if early_stop and status[done - 1, 1] == 0:
                 break
-    status = status_b.cpu().numpy()
+    with span("fea.sync.status"):
+        status = status_b.cpu().numpy()
     close_chunk(done)
     _check_status(status, done)
     return stress_b, active_b, disp_b, status, secs, done
@@ -424,14 +443,23 @@ def _device_result(model, cfg, bufs, t0) -> RampResult:
     factors = np.arange(done) / (cfg.n_steps - 1)
     fd = np.stack([2 * cfg.displacement_max * factors, status[:done, 3]],
                   axis=1)
+    with span("fea.records.fetch"):
+        stress, active, disp = (b[:done].cpu().numpy()
+                                for b in (stress_b, active_b, disp_b))
     return RampResult(
-        stress_record=stress_b[:done].cpu().numpy(),
-        active_record=active_b[:done].cpu().numpy(),
-        disp_record=disp_b[:done].cpu().numpy(),
+        stress_record=stress, active_record=active, disp_record=disp,
         force_disp=fd,
         solve_seconds=secs[:done],
         cg_iters=status[:done, 2].astype(np.int64),
-        total_seconds=time.time() - t0)
+        total_seconds=time.perf_counter() - t0)
+
+
+def _device_run(model, cfg, sync_every: int, early_stop: bool,
+                t0: float) -> RampResult:
+    """One pull test of the device-resident loop, its records fetched."""
+    with span("fea.ramp"):
+        return _device_result(model, cfg, _device_ramp(
+            model, cfg, sync_every, early_stop), t0)
 
 
 def run_ramp_async(coords, conn, cfg, device=DEFAULT_DEVICE,
@@ -444,11 +472,11 @@ def run_ramp_async(coords, conn, cfg, device=DEFAULT_DEVICE,
     the full-fracture step as ``run_ramp`` cuts them. ``solve_seconds`` is
     chunk-amortised: each sync chunk's wall time spread evenly over its
     steps."""
-    t0 = time.time()
+    t0 = time.perf_counter()
     if model is None:
         model = build_model(coords, conn, cfg, device)
-    bufs = _device_ramp(model, cfg, max(int(sync_every), 1), True)
-    return truncate_after_fracture(_device_result(model, cfg, bufs, t0))
+    return truncate_after_fracture(_device_run(
+        model, cfg, max(int(sync_every), 1), True, t0))
 
 
 def run_ramp_scan(coords, conn, cfg, device=DEFAULT_DEVICE,
@@ -460,9 +488,8 @@ def run_ramp_scan(coords, conn, cfg, device=DEFAULT_DEVICE,
     route runs the same loop: the reference sends its large models to
     ``run_ramp`` because one compiled program for all steps is costly
     there, and no such program exists here."""
-    t0 = time.time()
+    t0 = time.perf_counter()
     if model is None:
         model = build_model(coords, conn, cfg, device)
-    bufs = _device_ramp(model, cfg, 0, False)
-    res = _device_result(model, cfg, bufs, t0)
+    res = _device_run(model, cfg, 0, False, t0)
     return res._replace(solve_seconds=np.full((cfg.n_steps,), np.nan))

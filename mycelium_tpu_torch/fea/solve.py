@@ -34,6 +34,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .blocks import block_planes, mv3_planes
 from .coarse import cluster_layout, coarse_inverse, coarse_space
 from .model import diag_blocks, invert_blocks
@@ -428,7 +429,23 @@ def solve_displacement(model, active, dy_top: float, dy_bot: float, x0,
     ``anchored`` marks nodes still connected to a grip through active
     elements; the others are pinned to zero (the direct solver's answer).
     ``tree_factor_val`` is a precomputed compute_tree_factor result for the
-    same (active, anchored), read by the tree preconditioner."""
+    same (active, anchored), read by the tree preconditioner.
+
+    Under a profiler the solve is the span ``fea.solve``, the whole-solve
+    kernels' stats read inside it the host span ``fea.sync.stats``, and its
+    iterations add to the counter ``fea.cg_iters`` (``utils.profiling``)."""
+    if not profiling.on():
+        return _route_solve(model, active, dy_top, dy_bot, x0, cfg, anchored,
+                            tree_factor_val)
+    with profiling.span("fea.solve"):
+        res = _route_solve(model, active, dy_top, dy_bot, x0, cfg, anchored,
+                           tree_factor_val)
+        profiling.count("fea.cg_iters", res.iters)
+        return res
+
+
+def _route_solve(model, active, dy_top, dy_bot, x0, cfg, anchored,
+                 tree_factor_val) -> SolveResult:
     route = solve_route(model, cfg)
     if route == "node":
         return _node_solve(model, active, dy_top, dy_bot, x0, cfg,

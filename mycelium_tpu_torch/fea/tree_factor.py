@@ -29,6 +29,7 @@ from ..kernels.build import TREE_CG_WINDOW
 from ..kernels.ordered_sum import ordered_sum
 from ..kernels.pcr import (PcrLaunch, SweepTables, pcr_apply, pcr_factor,
                            transpose9)
+from ..utils.profiling import span
 from .tree import KIND_ELEM, KIND_FILL, KIND_NONE, TreeSchedule
 
 
@@ -963,28 +964,31 @@ def tree_anchored(plan: TreePlan, model, active):
     tgt = plan.att_tgt
     anch = grip
     while True:
-        anch_pad = torch.cat([anch, false1])
-        nb = anch_pad[model.neighbor] & link_ok
-        anch1 = anch | nb.any(dim=1) | grip
-        sv = torch.cat([anch1[plan.slots], false1])       # (S+1,)
-        for li in range(L):
-            s0, s1 = meta.level_offsets[li], meta.level_offsets[li + 1]
-            p0, p1 = meta.path_offsets[li], meta.path_offsets[li + 1]
-            la = left_act[s0:s1]
-            sv[s0:s1] = _span_or(sv[s0:s1], la, meta.level_steps[li])
-            for side, ends in ((0, plan.first_gpos[p0:p1]),
-                               (1, plan.last_gpos[p0:p1])):
-                t = tgt[p0:p1, side]
-                aa = att_act[p0:p1, side]
-                sv[ends] = sv[ends] | (sv[t] & aa)
-                # several paths may share a junction: count, then test
-                hit = torch.zeros(S_tot + 1, dtype=torch.int32,
-                                  device=sv.device)
-                hit.index_add_(0, t, (sv[ends] & aa).to(torch.int32))
-                sv = sv | (hit > 0)
-            sv[s0:s1] = _span_or(sv[s0:s1], la, meta.level_steps[li])
-        anch2 = anch1.clone()
-        anch2[plan.slots] = anch2[plan.slots] | sv[:S_tot]
-        if not bool((anch2 != anch).any()):               # the host read
+        with span("fea.refresh.trip"):
+            anch_pad = torch.cat([anch, false1])
+            nb = anch_pad[model.neighbor] & link_ok
+            anch1 = anch | nb.any(dim=1) | grip
+            sv = torch.cat([anch1[plan.slots], false1])       # (S+1,)
+            for li in range(L):
+                s0, s1 = meta.level_offsets[li], meta.level_offsets[li + 1]
+                p0, p1 = meta.path_offsets[li], meta.path_offsets[li + 1]
+                la = left_act[s0:s1]
+                sv[s0:s1] = _span_or(sv[s0:s1], la, meta.level_steps[li])
+                for side, ends in ((0, plan.first_gpos[p0:p1]),
+                                   (1, plan.last_gpos[p0:p1])):
+                    t = tgt[p0:p1, side]
+                    aa = att_act[p0:p1, side]
+                    sv[ends] = sv[ends] | (sv[t] & aa)
+                    # several paths may share a junction: count, then test
+                    hit = torch.zeros(S_tot + 1, dtype=torch.int32,
+                                      device=sv.device)
+                    hit.index_add_(0, t, (sv[ends] & aa).to(torch.int32))
+                    sv = sv | (hit > 0)
+                sv[s0:s1] = _span_or(sv[s0:s1], la, meta.level_steps[li])
+            anch2 = anch1.clone()
+            anch2[plan.slots] = anch2[plan.slots] | sv[:S_tot]
+            with span("fea.sync.trip"):                   # the host read
+                changed = bool((anch2 != anch).any())
+        if not changed:
             return anch2
         anch = anch2

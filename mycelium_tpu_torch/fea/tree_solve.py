@@ -21,6 +21,7 @@ times it).
 from __future__ import annotations
 
 from ..kernels.tree_cg import stall_converged, tree_cg_setup_plain
+from ..utils.profiling import host_span
 from .solve import SolveResult, free_mask
 
 
@@ -53,6 +54,7 @@ def tree_cg_solve(model, active, dy_top: float, dy_bot: float, x0, cfg,
     x, stats = model.tree_launch.solve(
         active, free_mask(model, anchored), dy_top, dy_bot, x0, cfg.rtol,
         cfg.reg, preconditioner_reg(model, cfg), cfg.max_iter)
-    iters, rnorm, tol, since = stats.tolist()
+    with host_span("fea.sync.stats"):
+        iters, rnorm, tol, since = stats.tolist()
     return SolveResult(x=x, iters=int(iters), resnorm=rnorm,
                        converged=stall_converged(rnorm, tol, int(since)))

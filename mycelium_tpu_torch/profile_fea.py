@@ -93,7 +93,7 @@ from .fea.model import tree_kernel_bytes
 from .fea.ramp import post_solve, refresh_anchored
 from .kernels import launch_counts, reset_launch_counts
 from .meshes import synthetic_mesh
-from .utils.profiling import window_ms
+from .utils.profiling import device_ops, window_ms
 
 
 # the sweep's K5 leg (chip_smoke.py, scripts/bench_sweep_tpu.py)
@@ -155,11 +155,7 @@ def profile(solve, reps: int, wall_ms: float, trace_path):
             solve()
             _sync()
             prof.step()
-    # the device events, less the profiler's own step annotations, which
-    # it also places on the device timeline
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("ProfilerStep")]
+    kernels = device_ops(prof)
     busy_ms = sum(e.device_time for e in kernels) / 1e3
     by_name = {}
     for e in kernels:
@@ -186,9 +182,8 @@ def kernel_ms(solve, reps: int, name: str) -> float:
         for _ in range(reps):
             solve()
         _sync()
-    return sum(e.device_time for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and name in e.name) / 1e3 / reps
+    return sum(e.device_time for e in device_ops(prof)
+               if name in e.name) / 1e3 / reps
 
 
 def ramp_routes(coords, conn, cfg, model, recs=None) -> dict:

@@ -38,6 +38,7 @@ from .growth.state import init_state
 from .growth.draws import TorchDraws
 from .growth.step import StepSyncs, growth_step
 from .scenes import petri_dish
+from .utils.profiling import device_ops
 
 
 def _sync():
@@ -113,11 +114,7 @@ def profile(st, ea, cfg, draws, steps, out_dir, wall_ms):
             st = growth_step(st, ea, cfg, draws.step(H, dtype, walls))
             _sync()
             prof.step()
-    # the device events, less the profiler's own step annotations, which
-    # it also places on the device timeline
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.name.startswith("ProfilerStep")]
+    kernels = device_ops(prof)
     busy_ms = sum(e.device_time for e in kernels) / 1e3
     by_name = {}
     for e in kernels:
