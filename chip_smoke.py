@@ -62,6 +62,12 @@ fails:
    iterations) at the shapes of the sweep path's 309k-DOF solve, on its
    own inputs: 403 clusters on fewer resident blocks, so a block loops
    over clusters, and the Gauss-Jordan inverse at nc 1,209;
+6a. K7 (grip reachability) against ``anchored_mask_host`` (scipy) at
+   22,125 and 309k DOF, element for element, on the intact mask, 10 drawn
+   masks with 1-50% of the elements inactive and the top grip cut off;
+   the kernel timed on a 5% fractured mask (call and device ms) beside
+   its byte bound and the plain ``tree_anchored``'s time; its launches
+   are read on the FEA path (the ramps' refreshes);
 7. the FEA path, launch counts set to 0 before and read after: a cold
    solve at 22,125 DOF through K6, checked in float64 against the
    stiffness the port assembles (``fea/assemble.py::assemble_scipy``, on
@@ -1412,6 +1418,67 @@ def time_ordered_sum_short(model, row: dict, device) -> None:
     row.update(short_ms=ms, short_plain_ms=pms, short_bound_ms=b[0])
     defer_device_ms("ordered_sum short segments", row, call, 100,
                     "short_device_ms", "short_ms")
+
+
+def anchored_reading(model, conn, device, rng, row: dict,
+                     suffix: str) -> None:
+    """K7 on one model, into ``row`` under keys ending in ``suffix``: its
+    mask against ``anchored_mask_host`` (scipy) on the intact mask, 10
+    drawn masks with 1-50% of the elements inactive and the top grip cut
+    off, element for element (the run fails on a difference); then the
+    kernel alone timed on a 5% fractured mask beside its byte bound and the
+    plain ``tree_anchored`` (the path it replaced) on the same mask."""
+    import torch
+    from mycelium_tpu_torch.fea.ramp import (anchored_mask_host,
+                                             refresh_anchored)
+    from mycelium_tpu_torch.fea.tree_factor import tree_anchored
+    label = f"K7 anchored, {model.n_dof} DOF"
+    conn = np.asarray(conn, np.int64)
+    grip = (model.top_nodes | model.bot_nodes).cpu().numpy()
+    top = model.top_nodes.cpu().numpy()
+    if device.type == "cuda":
+        k7 = model.anchored_launch.mask
+    else:
+        def k7(a):
+            return refresh_anchored(model, a)
+    masks = [np.ones(model.n_elems, bool),
+             ~(top[conn[:, 0]] | top[conn[:, 1]])]
+    masks += [rng.random(model.n_elems) >= f
+              for f in np.linspace(0.01, 0.5, 10)]
+    off = islands = 0
+    for act_np in masks:
+        host = anchored_mask_host(conn, act_np, grip)
+        got = k7(torch.as_tensor(act_np, device=device)).cpu().numpy()
+        off += int((got != host).sum())
+        islands += int((~host).sum())
+    act = torch.as_tensor(rng.random(model.n_elems) >= 0.05, device=device)
+    ms = timed_ms(lambda: k7(act), device, 50)
+    pms = timed_ms(lambda: tree_anchored(model.tree, model, act), device, 5)
+    b = bound(model.anchored_launch.io_bytes(), 0)
+    log(f"{label}: {len(masks)} masks, {off} nodes off scipy's ({islands} "
+        f"unanchored in all); call {ms:.4f} ms (plain tree_anchored "
+        f"{pms:.3f} ms, {pms / ms:.0f}x; bound {b[0]:.5f} ms by {b[1]})")
+    if off:
+        raise AssertionError(f"{label}: {off} nodes differ from "
+                             "anchored_mask_host")
+    row.update({f"ms{suffix}": ms, f"plain_ms{suffix}": pms,
+                f"bound_ms{suffix}": b[0], "bound_by": b[1],
+                "max_abs_err": max(row.get("max_abs_err", 0.0),
+                                   float(off))})
+    defer_device_ms(label, row, lambda: k7(act), 50, f"device_ms{suffix}",
+                    f"ms{suffix}")
+
+
+def compare_anchored(model, conn, model_b, conn_b, device, rng) -> dict:
+    """Phase 6a: K7 against scipy at 22,125 and 309k DOF, each timed
+    (``anchored_reading``); the row's numbers are the 309k ones, the 22k
+    ones ride beside them."""
+    row = dict(name="anchored", route="cuda",
+               source="mycelium_tpu_torch/kernels/csrc/anchored.cu",
+               replaces=None, library_ms=None)
+    anchored_reading(model_b, conn_b, device, rng, row, "")
+    anchored_reading(model, conn, device, rng, row, "_22k")
+    return row
 
 
 def forest_oracle_check(model, coords, conn, cfg, device) -> dict:
@@ -2765,6 +2832,10 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
                                    "309k", False)
     log(f"K6 comparison phases, 99k and 309k, with the 99k routes "
         f"{time.perf_counter() - t0:.2f} s")
+    # K7 against scipy at 22k and 309k, timed
+    t0 = time.perf_counter()
+    rows.append(compare_anchored(model, conn, model_b, conn_b, device, rng))
+    log(f"K7 comparison phase {time.perf_counter() - t0:.2f} s")
     k6_row = next(r for r in rows if r["name"] == "tree_cg")
     k6_row["max_abs_err"] = max(k6_row["max_abs_err"],
                                 *(d["max_abs_err"] for d in deep.values()))
@@ -2914,6 +2985,7 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
            "ordered_sum": ("FEA", fea_counts),
            "pcr_apply": ("FEA", fea_counts),
            "tree_cg": ("FEA", fea_counts),
+           "anchored": ("FEA", fea_counts),
            "chain_cg": ("sweep", sweep_counts),
            "anast_scan": ("growth", grow_counts)}
     paths = {"FEA": fea_counts, "sweep": sweep_counts,

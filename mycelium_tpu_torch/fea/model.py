@@ -58,6 +58,10 @@ class FeaModel:
     # the scratch and the result buffers, built once; None where the model
     # cannot run the kernel
     tree_launch: object | None = None
+    # K7 bound to this model (kernels.AnchoredLaunch): the grip reachability
+    # of an active mask in one launch, for CUDA tensors; made with every
+    # model, it allocates its scratch at its first launch
+    anchored_launch: object | None = None
     # the model can run the whole-solve kernel K6 (float32, a forest whose
     # tables K6 can read, within the card's memory): a fact of the model,
     # whatever configuration built it. fea/solve.py::solve_route sends
@@ -219,9 +223,11 @@ def build_model(coords: np.ndarray, conn: np.ndarray, cfg,
 def with_kernels(model: FeaModel) -> FeaModel:
     """``model`` with its node incidence CSR and its whole-solve kernels:
     its coarse plans, K5's
-    launch (bound at its first solve) and, where its forest has levels, K2
+    launch (bound at its first solve), K7's (bound at its first refresh)
+    and, where its forest has levels, K2
     bound to its levels, the tree kernel's index tables, whether it can run
     that kernel and, if it can, the kernel's launch bound to it."""
+    from ..kernels.anchored import AnchoredLaunch
     from ..kernels.chain_cg import ChainCgLaunch
     from ..kernels.tree_cg import TreeCgLaunch
     from .coarse import CoarsePlans
@@ -230,7 +236,9 @@ def with_kernels(model: FeaModel) -> FeaModel:
     model = replace(model, node_ptr=torch.as_tensor(ptr, device=model.device),
                     node_ent=torch.as_tensor(ent, device=model.device),
                     coarse_plans=plans, chain_launch=ChainCgLaunch(
-        plans, model.free_nodes, model.top_nodes, model.bot_nodes))
+        plans, model.free_nodes, model.top_nodes, model.bot_nodes),
+                    anchored_launch=AnchoredLaunch(
+        model.conn, model.top_nodes, model.bot_nodes))
     launch = None
     if model.tree.meta.level_steps:
         tables = build_tree_kernel_tables(model.tree, model.conn)

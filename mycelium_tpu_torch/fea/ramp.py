@@ -11,7 +11,8 @@ record force–displacement, stop early once the network has fully
 fractured. The tree-PC factorization (and the coarse inverse it carries
 with tree_coarse_weight > 0) is reused across steps whose active mask did
 not change; a fracture event refreshes the grip reachability (on the
-device: ``tree_anchored`` where the model has a forest, else
+card K7, ``kernels.AnchoredLaunch``, one launch; on the CPU
+``tree_anchored`` where the model has a forest, else
 ``anchored_mask_device``) and the factorization. Solves that go to the
 whole-solve tree kernel (``solve_route`` 'tree_cg') set up and factor inside
 their launch, so no factorization is kept for them; a solution returned
@@ -23,8 +24,9 @@ overwrites, which is why the loops keep only the previous step's solution
 ``run_ramp_async`` and ``run_ramp_scan`` keep them in preallocated device
 tensors written by step index and fetch them once at the end; what they
 still read on the host each step is the solve's three stats (one read, in
-``solve_displacement``) and one ``changed`` flag, plus one flag a trip of
-the reachability fixpoint after a fracture.
+``solve_displacement``) and one ``changed`` flag; on the CPU also one
+flag a trip of the reachability fixpoint after a fracture (on the card the
+refresh is one launch and reads nothing back).
 
 Under a profiler the loops hold the spans of ``utils.profiling``: a pull
 test (``fea.ramp``), the refresh and each of its trips, ``post_solve``,
@@ -108,9 +110,15 @@ def anchored_mask_device(model: FeaModel, active):
 
 
 def refresh_anchored(model: FeaModel, active):
-    """The grip reachability of ``active`` on the model's device: the
-    tree-accelerated sweep where the model has a forest."""
+    """The grip reachability of ``active`` on its device: for CUDA tensors
+    K7, one launch of union-find over the active elements and no host read
+    (``model.anchored_launch``), whatever the model; for CPU tensors the
+    plain fixpoint, the tree-accelerated sweep where the model has a
+    forest. The card's one launch is the refresh's one trip."""
     with span("fea.refresh"):
+        if active.device.type == "cuda":
+            with span("fea.refresh.trip"):
+                return model.anchored_launch.mask(active)
         if model.tree_fast is not None:
             from .tree_factor import tree_anchored
             return tree_anchored(model.tree, model, active)

@@ -1,13 +1,15 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch
 version: K1 ``chain_matvec``, K2 ``pcr_factor`` and K3 ``pcr_apply`` (both
 bound in ``PcrLaunch``), K4 ``anast_scan``, K5 ``chain_cg`` (``ChainCgLaunch``), K6
-``tree_cg`` (``TreeCgLaunch``), and ``ordered_sum``, the fixed-order
-segment sum of the PyTorch routes (it replaces no TPU kernel).
+``tree_cg`` (``TreeCgLaunch``), K7 the grip reachability
+(``AnchoredLaunch``), and ``ordered_sum``, the fixed-order segment sum of
+the PyTorch routes (neither of the last two replaces a TPU kernel).
 
 Nothing is compiled or loaded at import; ``build.library()`` compiles the
 sources on first use."""
 
 from .anast import anast_scan, anast_scan_plain
+from .anchored import AnchoredLaunch
 from .build import launch_counts, reset_launch_counts
 from .chain_cg import ChainCgLaunch, chain_cg_plain, chain_cg_setup_plain
 from .chain_matvec import ChainOperator, chain_matvec, chain_matvec_plain
@@ -22,4 +24,5 @@ __all__ = ["ChainOperator", "chain_matvec", "chain_matvec_plain", "pcr_factor",
            "anast_scan", "anast_scan_plain", "ChainCgLaunch",
            "chain_cg_plain", "chain_cg_setup_plain",
            "TreeCgLaunch", "tree_cg_plain", "tree_cg_setup_plain",
+           "AnchoredLaunch",
            "launch_counts", "reset_launch_counts"]

@@ -6,9 +6,9 @@ headers, so the build takes seconds. It happens at first use, never at
 import, into ``kernels/build/<hash>/``, keyed by a hash of the sources and
 flags, so an edited source is rebuilt and an unchanged one is reused.
 
-K5 (``chain_cg.cu``) and K6 (``tree_cg.cu``) synchronise their grids with
-cooperative groups' ``grid.sync()`` and are launched with
-``cudaLaunchCooperativeKernel``; since
+K5 (``chain_cg.cu``), K6 (``tree_cg.cu``) and K7 (``anchored.cu``)
+synchronise their grids with cooperative groups' ``grid.sync()`` and are
+launched with ``cudaLaunchCooperativeKernel``; since
 CUDA 11 that needs no relocatable device code (``-rdc``), so every source
 takes the same flags.
 
@@ -106,11 +106,16 @@ _SIGNATURES = {
                             ctypes.POINTER(ctypes.c_int)],
     # grid blocks, barriers, out (one int on the device), stream
     "tree_cg_barrier_probe": [ctypes.c_int, ctypes.c_int, _P, _P],
+    # conn, active, grip, parent, flag, out, n, n_elems, grid, stream
+    "anchored_mask": [_P] * 6 + [_I64, _I64, ctypes.c_int, _P],
+    # blocks per SM (out), SMs (out)
+    "anchored_grid_blocks": [ctypes.POINTER(ctypes.c_int),
+                             ctypes.POINTER(ctypes.c_int)],
 }
 
 _launches = {"chain_matvec": 0, "pcr_factor": 0, "pcr_apply": 0,
              "anast_scan": 0, "chain_cg": 0, "tree_cg": 0,
-             "ordered_sum": 0}
+             "ordered_sum": 0, "anchored": 0}
 
 
 def count_launch(name: str) -> None:

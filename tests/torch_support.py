@@ -872,6 +872,87 @@ def emulate_anast_by_cell(args, ties=None, z_major=False):
     return d2, tt, ids
 
 
+def emulate_anchored(conn, active, grip, seed: int = 0):
+    """K7's phases on the CPU (``kernels/csrc/anchored.cu``), each
+    thread's loads and stores of the shared pointers one step of a
+    generator and the steps of a phase's threads interleaved at random
+    (``seed``): the hooking of the active elements (path halving, the
+    larger root linked under the smaller by compare-and-swap), the
+    compression, and the grip flags and the result through root searches
+    that store nothing. Returns the (N,) bool mask. Under such
+    interleavings a search may store a grandparent over a root that the
+    compression wrote, which is why the last two phases search again."""
+    import random
+    rng = random.Random(seed)
+    n = len(grip)
+    parent = list(range(n))
+    flag, out = [0] * n, [False] * n
+
+    def find_root(x):
+        while True:
+            p = parent[x]
+            yield
+            if p == x:
+                return x
+            g = parent[p]
+            yield
+            if g == p:
+                return p
+            parent[x] = g
+            yield
+            x = g
+
+    def fixed_root(x):
+        while True:
+            p = parent[x]
+            yield
+            if p == x:
+                return x
+            x = p
+
+    def unite(a, b):
+        a = yield from find_root(a)
+        b = yield from find_root(b)
+        while a != b:
+            if a > b:
+                a, b = b, a
+            seen = parent[b]            # the compare-and-swap, one step
+            if seen == b:
+                parent[b] = a
+            yield
+            if seen == b:
+                return
+            b = yield from find_root(seen)
+
+    def compress(i):
+        parent[i] = yield from find_root(i)
+        yield
+
+    def set_flag(i):
+        flag[(yield from fixed_root(i))] = 1
+        yield
+
+    def write(i):
+        out[i] = bool(flag[(yield from fixed_root(i))])
+        yield
+
+    def phase(threads):
+        threads = list(threads)
+        while threads:
+            k = rng.randrange(len(threads))
+            try:
+                next(threads[k])
+            except StopIteration:
+                threads[k] = threads[-1]
+                threads.pop()
+
+    phase(unite(int(a), int(b)) for (a, b), on in zip(conn, active) if on)
+    phase(compress(i) for i in range(n))
+    phase(set_flag(i) for i in range(n) if grip[i])
+    phase(write(i) for i in range(n))
+    return np.asarray(out, bool)
+
+
 @contextlib.contextmanager
 def jax_coarse_in_float64():
     """The JAX package assembles and inverts the cluster coarse operator in
