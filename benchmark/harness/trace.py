@@ -5,15 +5,18 @@ Spans: around the program's layers the benchmark wraps, by attribute on
 ``mycelium_tpu_torch.fea.ramp``, ``refresh_anchored``, ``post_solve`` and
 ``solve_displacement`` (which ``ramp_step`` and the ramp loops look up
 there at every call) with ``torch.profiler.record_function``; a cold solve
-and each timed unit get a span from the driver and the harness. The
-program itself holds no span.
+and each timed unit get a span from the driver and the harness. A driver
+may open spans of its own, each named ``bench.<stage>`` (``stage_span``):
+they are kept beside the wrapped layers. The program's own spans are read
+from its registry (``metrics/program_readings.py``), not from here.
 
 A device operation belongs to the span in which its launch was made: the
 profiler ties each kernel, copy or fill to the runtime call that launched
 it (the same correlation id), and that call's host time falls inside the
 span's host interval. ``busy_s`` is the union of the device operations'
 intervals inside the window; an idle gap is named by the innermost span
-the host was in at the gap's middle.
+the host was in at the gap's middle. ``device_op_s`` keeps every device
+operation's seconds by name, ``device_ops`` the largest ten.
 """
 
 from __future__ import annotations
@@ -27,6 +30,15 @@ UNIT_SPAN = "bench.unit"
 WINDOW_SPAN = "bench.window"
 SPAN_NAMES = PROGRAM_SPANS + (UNIT_SPAN, WINDOW_SPAN)
 TOP = 10
+
+
+def stage_span(name: str) -> bool:
+    """A driver's own span: ``bench.<stage>``, not the unit or window."""
+    return name.startswith("bench.") and name not in (UNIT_SPAN, WINDOW_SPAN)
+
+
+def _kept(name: str) -> bool:
+    return name in SPAN_NAMES or stage_span(name)
 
 
 def no_span(name: str):
@@ -109,16 +121,19 @@ class TraceView:
         for e in events:
             name = e.name()
             if e.device_type() == cuda:
-                if e.is_user_annotation() or name in SPAN_NAMES:
+                if e.is_user_annotation() or _kept(name):
                     continue
                 device.append((e.start_ns(), e.start_ns() + e.duration_ns(),
                                e.correlation_id(), name))
-            elif name in SPAN_NAMES:
+            elif _kept(name):
                 spans[name].append((e.start_ns(),
                                     e.start_ns() + e.duration_ns()))
             elif name.startswith("cu"):      # runtime and driver calls
                 launch_at[e.correlation_id()] = e.start_ns()
         self.spans = {n: _Intervals(p) for n, p in spans.items()}
+        # the spans device time is tied to and idle gaps are named by
+        self.layers = PROGRAM_SPANS + tuple(sorted(
+            n for n in self.spans if stage_span(n)))
         win = self.spans.get(WINDOW_SPAN)
         if win is None or len(win) != 1:
             raise RuntimeError("the trace holds no window span")
@@ -135,7 +150,7 @@ class TraceView:
             if t is None:
                 self.unlinked += 1
                 continue
-            for n in PROGRAM_SPANS:
+            for n in self.layers:
                 iv = self.spans.get(n)
                 if iv is not None and iv.find(t) >= 0:
                     inside[n] += b - a
@@ -145,12 +160,13 @@ class TraceView:
         idle = defaultdict(int)
         for a, b in gaps:
             idle[self._host_state((a + b) // 2)] += b - a
+        self.device_op_s = {n: ns * 1e-9 for n, ns in by_op.items()}
         self.device_ops = _top(by_op)
         self.idle_gaps = _top(idle)
 
     def _host_state(self, t: int) -> str:
         best, best_len = "outside spans", None
-        for n in PROGRAM_SPANS + (UNIT_SPAN,):
+        for n in self.layers + (UNIT_SPAN,):
             iv = self.spans.get(n)
             i = -1 if iv is None else iv.find(t)
             if i >= 0:

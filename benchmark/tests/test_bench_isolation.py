@@ -37,6 +37,7 @@ sys.exit(1 if run.forbidden_modules() else 0)
 REF = r"""
 import sys
 sys.path.insert(0, sys.argv[1])
+import benchmark.reference.growth
 import benchmark.reference.pulltest
 bad = sorted({m.split(".")[0] for m in sys.modules}
              & {"jax", "jaxlib", "flax", "mycelium_tpu",

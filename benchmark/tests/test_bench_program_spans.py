@@ -96,7 +96,9 @@ def test_entries_of_the_new_metrics():
         assert m["better"] == "lower"
         assert m["moves"] == ("solve_ms" if name.endswith(".cold")
                               else "pulltest_s")
-    assert [m["name"] for m in SPEC["per_layer"][-len(NEW):]] == list(NEW)
+    names = [m["name"] for m in SPEC["per_layer"]]
+    first = names.index(NEW[0])
+    assert names[first:first + len(NEW)] == list(NEW)
 
 
 def test_program_spans_apart_from_the_benchmarks():
@@ -104,7 +106,10 @@ def test_program_spans_apart_from_the_benchmarks():
     assert all(n.startswith("fea.") for n in PROGRAM_SPANS)
 
 
-@pytest.mark.parametrize("cell", [w["name"] for w in SPEC["workloads"]])
+@pytest.mark.parametrize("cell", [
+    w["name"] for w in SPEC["workloads"]
+    if any(m["name"] in NEW and w["name"] in m["workloads"]
+           for m in SPEC["per_layer"])])
 def test_traced_cell_reports_the_new_metrics(small_root, cell):
     from mycelium_tpu_torch.utils import profiling
     profiling.reset_readings()
