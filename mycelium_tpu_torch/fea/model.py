@@ -26,6 +26,7 @@ import torch
 
 from ..devices import DEFAULT_DEVICE, resolve
 from ..kernels.ordered_sum import ordered_sum
+from ..utils import profiling
 from .blocks import block_planes
 from .chain import ChainPlan, build_chain_plan, greedy_path_cover
 from .elements import ElementGeometry, element_forces, element_geometry_host
@@ -172,7 +173,17 @@ def build_model(coords: np.ndarray, conn: np.ndarray, cfg,
     unless the caller passes "cpu").
 
     Grips: nodes within cfg.grip_length of y_max are the top grip, of
-    y_min the bottom grip; bottom wins where both apply."""
+    y_min the bottom grip; bottom wins where both apply.
+
+    Under a profiler it is the span ``fea.build``, with the children
+    ``fea.build.schedule`` (the forest schedule), ``fea.build.chain`` (the
+    node order and the chain plan), ``fea.build.tree`` (the tree plan and
+    its factor data) and ``fea.build.kernels`` (``with_kernels``)."""
+    with profiling.span("fea.build"):
+        return _build_model(coords, conn, cfg, device)
+
+
+def _build_model(coords, conn, cfg, device) -> FeaModel:
     dtype = DTYPES[cfg.dtype]
     device = resolve(device)
     coords = np.asarray(coords, dtype=np.float64)
@@ -188,16 +199,19 @@ def build_model(coords: np.ndarray, conn: np.ndarray, cfg,
     incident, sign, neighbor = _build_incidence(conn_np, n_nodes)
     n_host, length, k_ax, k_bd = element_geometry_host(coords, conn_np, cfg)
 
-    schedule = build_tree_schedule(conn_np, n_nodes, free,
-                                   max_path_len=cfg.tree_max_path_len)
-    chain_host = build_chain_plan(coords, conn_np, n_host, k_ax, k_bd,
-                                  perm=_unified_order(schedule, n_nodes))
-    k3 = element_k3(n_host, k_ax, k_bd)
-    tree_plan = build_tree_plan(schedule, k3, dtype, device,
-                                dense_tail=cfg.tree_dense_tail)
-    tree_fast = (build_fast_factor_data(schedule, k3, chain_host, dtype,
-                                        device)
-                 if schedule.levels else None)
+    with profiling.span("fea.build.schedule"):
+        schedule = build_tree_schedule(conn_np, n_nodes, free,
+                                       max_path_len=cfg.tree_max_path_len)
+    with profiling.span("fea.build.chain"):
+        chain_host = build_chain_plan(coords, conn_np, n_host, k_ax, k_bd,
+                                      perm=_unified_order(schedule, n_nodes))
+    with profiling.span("fea.build.tree"):
+        k3 = element_k3(n_host, k_ax, k_bd)
+        tree_plan = build_tree_plan(schedule, k3, dtype, device,
+                                    dense_tail=cfg.tree_dense_tail)
+        tree_fast = (build_fast_factor_data(schedule, k3, chain_host, dtype,
+                                            device)
+                     if schedule.levels else None)
 
     def f(a):
         return torch.as_tensor(np.asarray(a, np.float64), dtype=dtype,
@@ -217,7 +231,8 @@ def build_model(coords: np.ndarray, conn: np.ndarray, cfg,
         top_nodes=b(top), bot_nodes=b(bot), free_nodes=b(free),
         chain=ChainPlan.from_host(chain_host, dtype, device),
         tree=tree_plan, tree_fast=tree_fast)
-    return with_kernels(model)
+    with profiling.span("fea.build.kernels"):
+        return with_kernels(model)
 
 
 def with_kernels(model: FeaModel) -> FeaModel:
@@ -258,8 +273,13 @@ def with_kernels(model: FeaModel) -> FeaModel:
 # measured against the hybrid within one call on an H100 (chip_smoke.py,
 # profile_fea.py), K6 was 6-13x faster from 3 MB to 999 MB (22k to 3M DOF),
 # well past the 50 MB L2, because the hybrid is bound by its ~2,000 launches
-# and host reads, not by bytes. Beyond what was measured the model stays on
-# the hybrid, whose factorization is computed level by level.
+# and host reads, not by bytes. The grown networks of the xlarge pipeline
+# (profile_fea.py --grown benchmark/configs/pipeline-xlarge.json, growth
+# seeds 42 and 43: 2.96M DOF, 840 and 843 MB) stay below it: their cold
+# solves took 6.2 and 4.5-4.9 ms on K6 against 65-68 and 9.7-12 ms on the
+# hybrid.
+# Beyond what was measured the model stays on the hybrid, whose
+# factorization is computed level by level.
 TREE_KERNEL_MAX_BYTES = 1000 * 1000 * 1000
 # K6's windows must fit a block's shared memory (227 KB on the H100)
 TREE_KERNEL_MAX_SMEM = 227 * 1024

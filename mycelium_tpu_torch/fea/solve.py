@@ -432,21 +432,27 @@ def solve_displacement(model, active, dy_top: float, dy_bot: float, x0,
     same (active, anchored), read by the tree preconditioner.
 
     Under a profiler the solve is the span ``fea.solve``, the whole-solve
-    kernels' stats read inside it the host span ``fea.sync.stats``, and its
-    iterations add to the counter ``fea.cg_iters`` (``utils.profiling``)."""
+    kernels' stats read inside it the host span ``fea.sync.stats``; its
+    iterations add to the counter ``fea.cg_iters``, its route one to
+    ``fea.route.<route>`` (``solve_route``), and the model's nodes and
+    elements to ``fea.solve.nodes`` and ``fea.solve.elems``
+    (``utils.profiling``)."""
+    route = solve_route(model, cfg)
     if not profiling.on():
-        return _route_solve(model, active, dy_top, dy_bot, x0, cfg, anchored,
-                            tree_factor_val)
+        return _route_solve(route, model, active, dy_top, dy_bot, x0, cfg,
+                            anchored, tree_factor_val)
     with profiling.span("fea.solve"):
-        res = _route_solve(model, active, dy_top, dy_bot, x0, cfg, anchored,
-                           tree_factor_val)
+        res = _route_solve(route, model, active, dy_top, dy_bot, x0, cfg,
+                           anchored, tree_factor_val)
         profiling.count("fea.cg_iters", res.iters)
+        profiling.count("fea.route." + route)
+        profiling.count("fea.solve.nodes", model.n_nodes)
+        profiling.count("fea.solve.elems", model.n_elems)
         return res
 
 
-def _route_solve(model, active, dy_top, dy_bot, x0, cfg, anchored,
+def _route_solve(route, model, active, dy_top, dy_bot, x0, cfg, anchored,
                  tree_factor_val) -> SolveResult:
-    route = solve_route(model, cfg)
     if route == "node":
         return _node_solve(model, active, dy_top, dy_bot, x0, cfg,
                            anchored, tree_factor_val)

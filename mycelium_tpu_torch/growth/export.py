@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..io.writers import dedup_nodes, export_geometry, write_snapshot_csv
+from ..utils import profiling
 from .state import EMPTY, GrowthState
 
 
@@ -34,9 +35,11 @@ def export_state_geometry(st: GrowthState, out_dir: str) -> str:
 
 def state_mesh(st: GrowthState):
     """(coords, conn) of the deduplicated network, for ``build_model``
-    without the CSV round trip."""
-    starts, ends, _, _, _ = segments_to_host(st)
-    return dedup_nodes(starts, ends)
+    without the CSV round trip. Under a profiler it is the span
+    ``growth.export`` (``utils.profiling``)."""
+    with profiling.span("growth.export"):
+        starts, ends, _, _, _ = segments_to_host(st)
+        return dedup_nodes(starts, ends)
 
 
 def write_state_snapshot(st: GrowthState, snapshot_dir: str,

@@ -3,6 +3,8 @@
     python -m mycelium_tpu_torch.profile_fea [--nodes 7375 33000 103000]
         [--reps 5] [--out DIR] [--ramp-routes]
     python -m mycelium_tpu_torch.profile_fea --grown large medium
+    python -m mycelium_tpu_torch.profile_fea --grown CONFIG.json
+        [--growth-seeds 42 43] [--reps 5]
     python -m mycelium_tpu_torch.profile_fea --sweep TRIALS
     python -m mycelium_tpu_torch.profile_fea --hybrid-apply [--nodes ...]
 
@@ -40,7 +42,14 @@ the process on the host.
 With ``--grown PRESET [PRESET ...]`` it measures fault P6 on networks that
 users grow instead: each growth preset grown on the card through
 ``run_growth``, its network exported (``state_mesh``) and built with
-``hybrid_fea_config()``, then ``ramp_routes``: the 40-step fracturing ramp
+``hybrid_fea_config()``; in place of a preset, a configuration file with
+every ``GrowthConfig`` field under ``growth`` and every ``FeaConfig`` field
+under ``fea`` (``benchmark/configs/pipeline-*.json``), built with its own
+``fea``. Each is grown once a seed of ``--growth-seeds`` (else with
+``run_growth``'s default), its stages timed, its K6 bytes
+(``tree_kernel_bytes``) beside ``TREE_KERNEL_MAX_BYTES``, the card's
+memory peak, and the median ms of ``--reps`` cold solves on K6 and on the
+hybrid. Then ``ramp_routes``: the 40-step fracturing ramp
 on K6 (every level on PCR) and on the hybrid with the configuration's
 ``tree_dense_tail`` (the reference's route above its memory gate). Where
 no element fractures at the configuration's pull, it names the
@@ -293,42 +302,61 @@ def parting(coords, conn, cfg, model, recs) -> dict:
     return out
 
 
-def grown_ramps(preset: str) -> dict:
-    """P6 on a grown network (``--grown``): the preset grown through
-    ``run_growth`` on the card, its network built with
-    ``hybrid_fea_config()``, and ``ramp_routes`` at the configuration's pull
-    and, where nothing fractures there, at twice the displacement of the
-    first fracture."""
-    from .config import GROWTH_PRESETS
+def grown_ramps(preset: str, seed=None, reps: int = 5) -> dict:
+    """P6 on a grown network (``--grown``): the preset, or the
+    configuration file, grown through ``run_growth`` on the card with
+    ``seed``, its network built with ``hybrid_fea_config()`` or the file's
+    ``fea``; cold solves on K6 and on the hybrid, and ``ramp_routes`` at
+    the configuration's pull and, where nothing fractures there, at twice
+    the displacement of the first fracture."""
+    from .config import GROWTH_PRESETS, FeaConfig, GrowthConfig
     from .fea.elements import element_strain
+    from .fea.model import TREE_KERNEL_MAX_BYTES
     from .fea.tree_factor import n_pcr_levels
     from .growth import run_growth, state_mesh
-    gcfg = GROWTH_PRESETS[preset]
+    if preset.endswith(".json"):
+        with open(preset) as f:
+            spec = json.load(f)
+        gcfg, cfg = GrowthConfig(**spec["growth"]), FeaConfig(**spec["fea"])
+    else:
+        gcfg, cfg = GROWTH_PRESETS[preset], hybrid_fea_config()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    st, _, hist = run_growth(gcfg, device="cuda")
+    st, _, hist = run_growth(gcfg, seed=seed, device="cuda")
+    t1 = time.perf_counter()
     coords, conn = state_mesh(st)
-    cfg = hybrid_fea_config()
+    t2 = time.perf_counter()
     model = build_model(coords, conn, cfg, "cuda")
+    _sync()
+    t3 = time.perf_counter()
     off = model.tree.meta.level_offsets
-    out = dict(preset=preset, steps=gcfg.t_steps,
-               segments=hist[-1]["segments"], nodes=model.n_nodes,
-               elements=model.n_elems, dof=model.n_dof,
+    out = dict(preset=preset, growth_seed=seed, steps=gcfg.t_steps,
+               segments=hist[-1]["segments"], overflow=bool(st.overflow),
+               nodes=model.n_nodes, elements=model.n_elems, dof=model.n_dof,
                level_slots=[b - a for a, b in zip(off, off[1:])],
                hybrid_pcr_levels=n_pcr_levels(model.tree.meta),
                tree_dense_tail=cfg.tree_dense_tail,
                tree_kernel=model.tree_kernel,
                kernel_bytes=tree_kernel_bytes(model),
-               grow_and_build_s=time.perf_counter() - t0)
+               guard_bytes=TREE_KERNEL_MAX_BYTES,
+               growth_s=t1 - t0, export_s=t2 - t1, build_s=t3 - t2,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    del st
+    active = torch.ones(model.n_elems, dtype=torch.bool, device="cuda")
+    dy = cfg.displacement_max
+    x0 = torch.zeros((model.n_nodes, 3), dtype=model.dtype, device="cuda")
+    cold = dataclasses.replace(cfg, warm_start=False)
+    anchored = refresh_anchored(model, active)
+    out["cold_solve_ms"] = {
+        name: solve_ms(lambda m=dataclasses.replace(model, tree_kernel=on):
+                       solve_displacement(m, active, dy, -dy, x0, cold,
+                                          anchored), reps)[0]
+        for name, on in (("tree_cg", True), ("hybrid", False))}
     out["ramp"] = ramp_routes(coords, conn, cfg, model)
     if not any(r.get("fractured", 0) for r in out["ramp"].values()
                if isinstance(r, dict)):
-        active = torch.ones(model.n_elems, dtype=torch.bool, device="cuda")
-        dy = cfg.displacement_max
-        x0 = torch.zeros((model.n_nodes, 3), dtype=model.dtype,
-                         device="cuda")
-        u = solve_displacement(model, active, dy, -dy, x0,
-                               dataclasses.replace(cfg, warm_start=False),
-                               refresh_anchored(model, active)).x
+        u = solve_displacement(model, active, dy, -dy, x0, cold,
+                               anchored).x
         strain = float(element_strain(u, model.conn, model.geom).abs().max())
         first = dy * cfg.max_strain / max(strain, 1e-300)
         out.update(max_strain_at_pull=strain,
@@ -552,14 +580,17 @@ def main(argv=None) -> int:
                     help="only the hybrid's tree preconditioner: apply, "
                     "factorization, dense tail bits, cold solve")
     ap.add_argument("--grown", nargs="+", default=None, metavar="PRESET",
-                    help="only P6: grow each preset, ramp it on K6 and on "
-                    "the hybrid")
+                    help="only P6: grow each preset or configuration file, "
+                    "solve and ramp it on K6 and on the hybrid")
+    ap.add_argument("--growth-seeds", type=int, nargs="+", default=[None],
+                    help="the growth seeds of --grown")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_fea: needs a CUDA card")
     if args.grown:
         print(json.dumps(dict(card=card_line(), grown=[
-            grown_ramps(p) for p in args.grown])))
+            grown_ramps(p, seed, args.reps) for p in args.grown
+            for seed in args.growth_seeds])))
         return 0
     if args.hybrid_apply:
         runs = [hybrid_apply(n, args.reps) for n in args.nodes]
