@@ -22,16 +22,21 @@ overwrites, which is why the loops keep only the previous step's solution
 
 ``run_ramp`` reads the step's records on the host every step.
 ``run_ramp_async`` and ``run_ramp_scan`` keep them in preallocated device
-tensors written by step index and fetch them once at the end; what they
-still read on the host each step is the solve's three stats (one read, in
-``solve_displacement``) and one ``changed`` flag; on the CPU also one
-flag a trip of the reachability fixpoint after a fracture (on the card the
-refresh is one launch and reads nothing back).
+tensors written by step index and fetch them once at the end: on the card
+into page-locked host tensors of their own, by three asynchronous copies
+and one wait, so the result's arrays are complete when it is returned and
+no later test writes over them. What they still read on the host each step
+is the solve's three stats (one read, in ``solve_displacement``) and one
+``changed`` flag; on the CPU also one flag a trip of the reachability
+fixpoint after a fracture (on the card the refresh is one launch and reads
+nothing back).
 
 Under a profiler the loops hold the spans of ``utils.profiling``: a pull
 test (``fea.ramp``), the refresh and each of its trips, ``post_solve``,
 each host read (``fea.sync.*``) and the records' writes and fetches
-(``fea.records.*``); ``solve_displacement`` holds its own.
+(``fea.records.*``); ``solve_displacement`` holds its own. The card's
+fetch counts its bytes (``fea.records.pinned_bytes``) and whether it had to
+page-lock new host memory (``fea.records.pinned_fresh``).
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ import numpy as np
 import torch
 
 from ..devices import DEFAULT_DEVICE
-from ..utils.profiling import span
+from ..utils import profiling
+from ..utils.profiling import count, span
 from .elements import element_strain
 from .model import FeaModel, apply_stiffness, build_model
 from .solve import compute_tree_factor, solve_displacement, solve_route
@@ -446,14 +452,43 @@ def _device_ramp(model: FeaModel, cfg, sync_every: int, early_stop: bool):
     return stress_b, active_b, disp_b, status, secs, done
 
 
+def _pinned_blocks() -> int:
+    """Page-locked blocks the caching host allocator has made so far."""
+    return torch.cuda.host_memory_stats()["allocations.allocated"]
+
+
+def _fetch_records(bufs, done: int):
+    """The first ``done`` rows of each device tensor of ``bufs`` as numpy
+    arrays of the caller's own. CUDA rows are copied by the copy engine into
+    fresh page-locked host tensors, all copies enqueued on the current
+    stream and then one wait. The tensors come from PyTorch's caching host
+    allocator, which hands out a freed block of the same power-of-two size
+    again, so once a result of that size has been dropped a fetch page-locks
+    nothing new. CPU rows are returned as ``.cpu()`` gives them."""
+    if bufs[0].device.type != "cuda":
+        return tuple(b[:done].cpu().numpy() for b in bufs)
+    traced = profiling.on()
+    if traced:
+        blocks = _pinned_blocks()
+    host = [torch.empty((done,) + b.shape[1:], dtype=b.dtype,
+                        pin_memory=True) for b in bufs]
+    for h, b in zip(host, bufs):
+        h.copy_(b[:done], non_blocking=True)
+    torch.cuda.current_stream(bufs[0].device).synchronize()
+    if traced:
+        count("fea.records.pinned_bytes", sum(h.nbytes for h in host))
+        count("fea.records.pinned_fresh", _pinned_blocks() > blocks)
+    return tuple(h.numpy() for h in host)
+
+
 def _device_result(model, cfg, bufs, t0) -> RampResult:
     stress_b, active_b, disp_b, status, secs, done = bufs
     factors = np.arange(done) / (cfg.n_steps - 1)
     fd = np.stack([2 * cfg.displacement_max * factors, status[:done, 3]],
                   axis=1)
     with span("fea.records.fetch"):
-        stress, active, disp = (b[:done].cpu().numpy()
-                                for b in (stress_b, active_b, disp_b))
+        stress, active, disp = _fetch_records((stress_b, active_b, disp_b),
+                                              done)
     return RampResult(
         stress_record=stress, active_record=active, disp_record=disp,
         force_disp=fd,
@@ -479,7 +514,9 @@ def run_ramp_async(coords, conn, cfg, device=DEFAULT_DEVICE,
     divergence check run at that granularity, and the records are cut at
     the full-fracture step as ``run_ramp`` cuts them. ``solve_seconds`` is
     chunk-amortised: each sync chunk's wall time spread evenly over its
-    steps."""
+    steps. On the card the records land in page-locked host memory that
+    the result owns: the copies are complete when this returns, and a
+    later pull test on the same model writes elsewhere."""
     t0 = time.perf_counter()
     if model is None:
         model = build_model(coords, conn, cfg, device)
