@@ -2591,8 +2591,8 @@ RAMP_SYNC_EVERY = 8
 
 
 def ramp_solves(res, n_steps: int) -> int:
-    """The solves ``fea/ramp.py::_device_ramp`` issued for the ramp ``res``
-    of ``run_ramp_async``: every step unless the network fractured through.
+    """The solves ``fea/ramp.py::_loop`` issued for the ramp ``res`` of
+    ``run_ramp_async``: every step unless the network fractured through.
     Then its records end at the step that broke the last element, but the
     ramp solved on to its next status read (a multiple of RAMP_SYNC_EVERY
     steps, at most n_steps), so a truncated ramp may still have solved

@@ -2,15 +2,13 @@
 kernels and the hybrid) and the ramp loops."""
 
 from .model import FeaModel, apply_stiffness, build_model
-from .ramp import (RampResult, SolveDivergedError, anchored_mask_device,
-                   run_ramp, run_ramp_async, run_ramp_scan,
-                   run_ramp_sharded, truncate_after_fracture)
+from .ramp import (RampResult, SolveDivergedError, run_ramp, run_ramp_async,
+                   run_ramp_scan, run_ramp_sharded, truncate_after_fracture)
 from .solve import (SolveResult, compute_tree_factor, solve_displacement,
                     solve_route)
 
 __all__ = ["FeaModel", "apply_stiffness", "build_model", "RampResult",
-           "SolveDivergedError", "anchored_mask_device", "run_ramp",
-           "run_ramp_async", "run_ramp_scan", "run_ramp_sharded",
-           "truncate_after_fracture",
+           "SolveDivergedError", "run_ramp", "run_ramp_async", "run_ramp_scan",
+           "run_ramp_sharded", "truncate_after_fracture",
            "SolveResult", "compute_tree_factor", "solve_displacement",
            "solve_route"]

@@ -1,8 +1,7 @@
 """The quasi-static tensile pull test (port of ``mycelium_tpu/fea/ramp.py``:
-``RampResult``, ``ramp_step``, ``post_solve``, ``anchored_mask_host``,
-``anchored_mask_device``, the ``run_ramp`` loop with its checkpoints,
-``run_ramp_sharded`` and the device-resident loops ``run_ramp_async`` and
-``run_ramp_scan``).
+``RampResult``, ``ramp_step``, ``post_solve``, ``anchored_mask_host``, the
+``run_ramp`` loop with its checkpoints, ``run_ramp_sharded`` and the
+device-resident loops ``run_ramp_async`` and ``run_ramp_scan``).
 
 40-step displacement ramp, dy = ±displacement_max·step/(n_steps−1): solve
 under grip BCs, reactions with the pre-BC stiffness, axial strains on the
@@ -11,27 +10,27 @@ record force–displacement, stop early once the network has fully
 fractured. The tree-PC factorization (and the coarse inverse it carries
 with tree_coarse_weight > 0) is reused across steps whose active mask did
 not change; a fracture event refreshes the grip reachability (on the
-card K7, ``kernels.AnchoredLaunch``, one launch; on the CPU
-``tree_anchored`` where the model has a forest, else
-``anchored_mask_device``) and the factorization. Solves that go to the
+card K7, ``kernels.AnchoredLaunch``, one launch; on the CPU the fixpoint
+``tree_anchored``) and the factorization. Solves that go to the
 whole-solve tree kernel (``solve_route`` 'tree_cg') set up and factor inside
 their launch, so no factorization is kept for them; a solution returned
 there is a buffer of the model's launch that the solve after next
-overwrites, which is why the loops keep only the previous step's solution
-(for the warm start) and copy what they record.
+overwrites, which is why the loop keeps only the previous step's solution
+(for the warm start) and copies what it records.
 
-``run_ramp`` reads the step's records on the host every step.
-``run_ramp_async`` and ``run_ramp_scan`` keep them in preallocated device
-tensors written by step index and fetch them once at the end: on the card
-into page-locked host tensors of their own, by three asynchronous copies
-and one wait, so the result's arrays are complete when it is returned and
-no later test writes over them. What they still read on the host each step
-is the solve's three stats (one read, in ``solve_displacement``) and one
-``changed`` flag; on the CPU also one flag a trip of the reachability
-fixpoint after a fracture (on the card the refresh is one launch and reads
-nothing back).
+The four ramp functions run one step loop (``_loop``) and differ in their
+record keeper. ``_Records`` (``run_ramp``, ``run_ramp_sharded``) reads the
+step's records on the host every step. ``_DeviceRecords`` (``run_ramp_async``,
+``run_ramp_scan``) keeps them in preallocated device tensors written by
+step index and fetches them once at the end: on the card into page-locked
+host tensors of their own, by three asynchronous copies and one wait, so
+the result's arrays are complete when it is returned and no later test
+writes over them. What it still reads on the host each step is the solve's
+three stats (one read, in ``solve_displacement``) and one ``changed``
+flag; on the CPU also one flag a trip of the reachability fixpoint after a
+fracture (on the card the refresh is one launch and reads nothing back).
 
-Under a profiler the loops hold the spans of ``utils.profiling``: a pull
+Under a profiler the loop holds the spans of ``utils.profiling``: a pull
 test (``fea.ramp``), the refresh and each of its trips, ``post_solve``,
 each host read (``fea.sync.*``) and the records' writes and fetches
 (``fea.records.*``); ``solve_displacement`` holds its own. The card's
@@ -74,13 +73,6 @@ def _step_factors(cfg, step: int):
     return cfg.displacement_max * factor, -cfg.displacement_max * factor
 
 
-def _check_converged(converged: bool, step: int, resnorm: float) -> None:
-    if not converged:
-        raise SolveDivergedError(
-            f"solver diverged at ramp step {step + 1}: |r| = {resnorm:.3e} "
-            "after max_iter iterations")
-
-
 def anchored_mask_host(conn: np.ndarray, active: np.ndarray,
                        grip: np.ndarray) -> np.ndarray:
     """Nodes reachable from a grip through active elements (scipy
@@ -96,39 +88,19 @@ def anchored_mask_host(conn: np.ndarray, active: np.ndarray,
     return np.isin(labels, np.unique(labels[grip]))
 
 
-def anchored_mask_device(model: FeaModel, active):
-    """Grip reachability on the device by monotone label propagation over
-    the ELL neighbour table: O(graph diameter) sweeps, each one gather and
-    one host read of the ``changed`` flag."""
-    grip = model.top_nodes | model.bot_nodes
-    false1 = torch.zeros((1,), dtype=torch.bool, device=grip.device)
-    link_ok = torch.cat([active.to(torch.bool), false1])[model.incident]
-    anch = grip
-    while True:
-        with span("fea.refresh.trip"):
-            nb = torch.cat([anch, false1])[model.neighbor] & link_ok
-            new = grip | nb.any(dim=1)
-            with span("fea.sync.trip"):
-                changed = bool((new != anch).any())
-        if not changed:
-            return new
-        anch = new
-
-
 def refresh_anchored(model: FeaModel, active):
-    """The grip reachability of ``active`` on its device: for CUDA tensors
-    K7, one launch of union-find over the active elements and no host read
-    (``model.anchored_launch``), whatever the model; for CPU tensors the
-    plain fixpoint, the tree-accelerated sweep where the model has a
-    forest. The card's one launch is the refresh's one trip."""
+    """The grip reachability of ``active`` on its device, whatever the
+    model: for CUDA tensors K7, one launch of union-find over the active
+    elements and no host read (``model.anchored_launch``); for CPU tensors
+    the fixpoint ``tree_anchored``, which on a forest with no levels (no
+    free node) is the plain neighbour sweep. The card's one launch is the
+    refresh's one trip."""
     with span("fea.refresh"):
         if active.device.type == "cuda":
             with span("fea.refresh.trip"):
                 return model.anchored_launch.mask(active)
-        if model.tree_fast is not None:
-            from .tree_factor import tree_anchored
-            return tree_anchored(model.tree, model, active)
-        return anchored_mask_device(model, active)
+        from .tree_factor import tree_anchored
+        return tree_anchored(model.tree, model, active)
 
 
 def keeps_factor(model: FeaModel, cfg) -> bool:
@@ -162,44 +134,81 @@ def ramp_step(model: FeaModel, cfg, active, x0, dy_top: float,
 
 
 class _Records:
-    """The per-step records of the loop drivers, with their checkpoint
-    files: ``resume`` reads a file's position, mask, last displacement and
-    records, ``save`` writes them (coordinator only). The file's names are
-    the JAX package's, so a file written by either package resumes in the
-    other."""
+    """The records of ``run_ramp`` and ``run_ramp_sharded``, read on the
+    host every step, with their checkpoint files: the ramp goes on from
+    the file ``resume_from``, and its state (next step, active mask, last
+    displacement, records) is saved to ``checkpoint_path`` after every
+    step with (step + 1 - first step) % ``checkpoint_every`` == 0
+    (coordinator only). The file's names are the JAX package's, so a file
+    written by either package resumes in the other."""
 
-    def __init__(self):
+    def __init__(self, checkpoint_path: Optional[str],
+                 checkpoint_every: int, resume_from: Optional[str]):
+        self.path, self.every = checkpoint_path, checkpoint_every
+        self.resume_from = resume_from
         self.stress, self.active, self.disp, self.fd = [], [], [], []
         self.secs, self.iters = [], []
 
-    def resume(self, path: str, cfg):
-        """(next step, active mask, last displacement, previous step's
-        ramp factor) of the file at ``path``; its records become these."""
+    def start(self, model: FeaModel, cfg):
+        """The ramp's start, or the position of the file ``resume_from``,
+        whose records become these; a file past full fracture leaves no
+        step to run."""
+        self.cfg = cfg
+        if self.resume_from is None:
+            self.first, self.mask = 0, np.ones(model.n_elems, bool)
+            return _fresh_start(model)
         from ..io.checkpoint import load_ramp_state
-        step, active_np, u_prev, recs = load_ramp_state(path)
+        step, active_np, u_np, recs = load_ramp_state(self.resume_from)
         self.stress = list(recs["stress"])
         self.active = list(recs["active"])
         self.disp = list(recs["disp"])
         self.fd = [list(r) for r in recs["fd"]]
         self.secs = list(recs["solve_secs"])
         self.iters = [int(i) for i in recs["iters"]]
+        self.first, self.mask = step, active_np.astype(bool)
         prev_factor = (step - 1) / (cfg.n_steps - 1) if step > 0 else 0.0
-        return step, active_np.astype(bool), u_prev, prev_factor
+        dev = model.device
+        return (step if self.mask.any() else cfg.n_steps,
+                torch.as_tensor(self.mask, device=dev),
+                torch.as_tensor(u_np, dtype=model.dtype, device=dev),
+                prev_factor)
 
-    def add(self, stress, active_np, u, dy: float, force: float,
-            secs: float, iters: int) -> None:
-        self.stress.append(stress.cpu().numpy())
-        self.active.append(active_np)
-        self.disp.append(u.cpu().numpy().reshape(-1))
-        self.fd.append([dy, force])
-        self.secs.append(secs)
-        self.iters.append(int(iters))
+    def record(self, step: int, ts: float, active, out) -> bool:
+        """Refuse a solve that did not converge, read the step's records
+        and compare its mask with the last on the host."""
+        u, stress, active_new, total_force, iters, resnorm, converged = out
+        if not converged:
+            raise SolveDivergedError(
+                f"solver diverged at ramp step {step + 1}: |r| = "
+                f"{resnorm:.3e} after max_iter iterations")
+        secs = time.perf_counter() - ts
+        dy_top, dy_bot = _step_factors(self.cfg, step)
+        with span("fea.records.fetch"):
+            mask = active_new.cpu().numpy()
+            self.stress.append(stress.cpu().numpy())
+            self.active.append(mask)
+            self.disp.append(u.cpu().numpy().reshape(-1))
+            self.fd.append([dy_top - dy_bot, float(total_force)])
+            self.secs.append(secs)
+            self.iters.append(int(iters))
+        changed = not np.array_equal(mask, self.mask)
+        self.mask = mask
+        return changed
 
-    def save(self, path: str, next_step: int, active_np, u_prev) -> None:
+    def after(self, step: int, u_prev) -> bool:
+        """Save the state where a checkpoint is due; stop on full
+        fracture."""
+        if self.path is not None and self.every > 0 \
+                and (step + 1 - self.first) % self.every == 0:
+            self.save(step + 1, u_prev)
+        return not self.mask.any()
+
+    def save(self, next_step: int, u_prev) -> None:
         """``u_prev`` is copied to the host: a K6 result is a launch
         buffer, and a resumed run takes its warm start from the file."""
         from ..io.checkpoint import save_ramp_state
-        save_ramp_state(path, next_step, active_np, u_prev.cpu().numpy(),
+        save_ramp_state(self.path, next_step, self.mask,
+                        u_prev.cpu().numpy(),
                         records=dict(
                             stress=np.stack(self.stress),
                             active=np.stack(self.active),
@@ -219,45 +228,28 @@ class _Records:
             total_seconds=time.perf_counter() - t0)
 
 
-def _ramp_start(model: FeaModel, cfg, recs: _Records,
-                resume_from: Optional[str]):
-    """(first step, active mask on the host and on the device, last
-    displacement, previous ramp factor): the ramp's start, or the
-    position of the checkpoint ``resume_from``."""
-    dtype, dev = model.dtype, model.device
-    if resume_from is None:
-        active_np = np.ones(model.n_elems, bool)
-        u_prev = torch.zeros((model.n_nodes, 3), dtype=dtype, device=dev)
-        return 0, active_np, torch.as_tensor(active_np, device=dev), \
-            u_prev, 0.0
-    step, active_np, u_np, prev_factor = recs.resume(resume_from, cfg)
-    return step, active_np, torch.as_tensor(active_np, device=dev), \
-        torch.as_tensor(u_np, dtype=dtype, device=dev), prev_factor
+def _fresh_start(model: FeaModel):
+    """(first step, active mask, last displacement, previous ramp factor)
+    of a ramp from its start."""
+    dev = model.device
+    return (0, torch.ones(model.n_elems, dtype=torch.bool, device=dev),
+            torch.zeros((model.n_nodes, 3), dtype=model.dtype, device=dev),
+            0.0)
 
 
-def _checkpoint_due(path, every: int, step: int, start_step: int) -> bool:
-    return path is not None and every > 0 \
-        and (step + 1 - start_step) % every == 0
-
-
-def _loop_ramp(model: FeaModel, cfg, step_fn, use_fac: bool,
-               checkpoint_path: Optional[str], checkpoint_every: int,
-               resume_from: Optional[str]) -> _Records:
-    """The loop of ``run_ramp`` and ``run_ramp_sharded``: ``step_fn(active,
-    x0, dy_top, dy_bot, anchored, factor)`` is the step (what
-    ``ramp_step`` returns), and the tree-PC factorization is kept between
-    steps where ``use_fac``."""
-    recs = _Records()
-    start_step, active_np, active, u_prev, prev_factor = _ramp_start(
-        model, cfg, recs, resume_from)
-
+def _loop(model: FeaModel, cfg, step_fn, keeps: bool, recs):
+    """The pull test's step loop, for every ramp function.
+    ``step_fn(active, x0, dy_top, dy_bot, anchored, factor)`` is the step
+    (what ``ramp_step`` returns), and the tree-PC factorization is kept
+    between steps where ``keeps``. ``recs`` keeps the records: ``start``
+    gives the first step and its state, ``record`` takes the step's
+    results and says whether the mask changed, and ``after``, called once
+    the refresh is enqueued, says whether to stop. Returns ``recs``."""
+    first, active, u_prev, prev_factor = recs.start(model, cfg)
     anchored = refresh_anchored(model, active)
-    fac = compute_tree_factor(model, active, cfg, anchored) if use_fac \
+    fac = compute_tree_factor(model, active, cfg, anchored) if keeps \
         else None
-
-    for step in range(start_step, cfg.n_steps):
-        if step > 0 and not active_np.any():
-            break   # resumed past full fracture: nothing left to solve
+    for step in range(first, cfg.n_steps):
         dy_top, dy_bot = _step_factors(cfg, step)
         # warm start: the response is linear between fracture events
         factor = step / (cfg.n_steps - 1)
@@ -266,30 +258,40 @@ def _loop_ramp(model: FeaModel, cfg, step_fn, use_fac: bool,
         else:
             x0 = torch.zeros_like(u_prev)
         ts = time.perf_counter()
-        u, stress, active_new, total_force, iters, resnorm, converged = \
-            step_fn(active, x0, dy_top, dy_bot, anchored, fac)
-        _check_converged(converged, step, resnorm)
-        secs = time.perf_counter() - ts
-
-        with span("fea.records.fetch"):
-            active_new_np = active_new.cpu().numpy()
-            recs.add(stress, active_new_np, u, dy_top - dy_bot,
-                     float(total_force), secs, iters)
-
-        if not np.array_equal(active_new_np, active_np):
+        out = step_fn(active, x0, dy_top, dy_bot, anchored, fac)
+        u, active_new = out[0], out[2]
+        if recs.record(step, ts, active, out):
             # fracture changed the topology: refresh grip reachability and
             # the tree-PC factorization
             anchored = refresh_anchored(model, active_new)
-            if use_fac:
+            if keeps:
                 fac = compute_tree_factor(model, active_new, cfg, anchored)
-        u_prev, active, active_np, prev_factor = \
-            u, active_new, active_new_np, factor
-        if _checkpoint_due(checkpoint_path, checkpoint_every, step,
-                           start_step):
-            recs.save(checkpoint_path, step + 1, active_np, u_prev)
-        if not active_new_np.any():
-            break   # early stop on full fracture
+        u_prev, active, prev_factor = u, active_new, factor
+        if recs.after(step, u_prev):
+            break
     return recs
+
+
+def _ramp_steps(model: FeaModel, cfg):
+    """The step of ``run_ramp``, ``run_ramp_async`` and ``run_ramp_scan``
+    (``ramp_step``, looked up at every call) and its factor rule."""
+    def step_fn(active, x0, dy_top, dy_bot, anchored, fac):
+        return ramp_step(model, cfg, active, x0, dy_top, dy_bot, anchored,
+                         fac)
+    return step_fn, keeps_factor(model, cfg)
+
+
+def _pull_test(coords, conn, cfg, device, model: Optional[FeaModel], recs,
+               steps) -> RampResult:
+    """One pull test of a ramp function: on ``model`` if given, else on a
+    model built on ``device``, with the step and factor rule that
+    ``steps(model, cfg)`` gives and the record keeper ``recs``."""
+    t0 = time.perf_counter()
+    if model is None:
+        model = build_model(coords, conn, cfg, device)
+    step_fn, keeps = steps(model, cfg)
+    with span("fea.ramp"):
+        return _loop(model, cfg, step_fn, keeps, recs).result(t0)
 
 
 def run_ramp(coords, conn, cfg, device=DEFAULT_DEVICE,
@@ -308,18 +310,8 @@ def run_ramp(coords, conn, cfg, device=DEFAULT_DEVICE,
     ``resume_from`` goes on from such a file: the grip reachability and
     the factorization are rebuilt from its mask and the warm start comes
     from its displacement, so the records equal the unsplit run's."""
-    t0 = time.perf_counter()
-    if model is None:
-        model = build_model(coords, conn, cfg, device)
-
-    def step_fn(active, x0, dy_top, dy_bot, anchored, fac):
-        return ramp_step(model, cfg, active, x0, dy_top, dy_bot, anchored,
-                         fac)
-
-    with span("fea.ramp"):
-        return _loop_ramp(model, cfg, step_fn, keeps_factor(model, cfg),
-                          checkpoint_path, checkpoint_every,
-                          resume_from).result(t0)
+    return _pull_test(coords, conn, cfg, device, model, _Records(
+        checkpoint_path, checkpoint_every, resume_from), _ramp_steps)
 
 
 def run_ramp_sharded(coords, conn, cfg, device=DEFAULT_DEVICE,
@@ -337,22 +329,21 @@ def run_ramp_sharded(coords, conn, cfg, device=DEFAULT_DEVICE,
     rank. The checkpoint arguments are ``run_ramp``'s; only the
     coordinator writes."""
     from .shard import sharded_cg_solver
-    t0 = time.perf_counter()
-    if model is None:
-        model = build_model(coords, conn, cfg, device)
-    solver = sharded_cg_solver(model, cfg, group)
 
-    def step_fn(active, x0, dy_top, dy_bot, anchored, fac):
-        res = solver(active, dy_top, dy_bot, x0, anchored, fac)
-        stress, active_new, total_force = post_solve(model, cfg, res.x,
-                                                     active)
-        return (res.x, stress, active_new, total_force, res.iters,
-                res.resnorm, res.converged)
+    def sharded_steps(model, cfg):
+        solver = sharded_cg_solver(model, cfg, group)
 
-    use_fac = cfg.precond == "tree" and model.tree_fast is not None
-    with span("fea.ramp"):
-        return _loop_ramp(model, cfg, step_fn, use_fac, checkpoint_path,
-                          checkpoint_every, resume_from).result(t0)
+        def step_fn(active, x0, dy_top, dy_bot, anchored, fac):
+            res = solver(active, dy_top, dy_bot, x0, anchored, fac)
+            stress, active_new, total_force = post_solve(model, cfg, res.x,
+                                                         active)
+            return (res.x, stress, active_new, total_force, res.iters,
+                    res.resnorm, res.converged)
+        # the sharded solver has no whole-solve route
+        return step_fn, cfg.precond == "tree"
+
+    return _pull_test(coords, conn, cfg, device, model, _Records(
+        checkpoint_path, checkpoint_every, resume_from), sharded_steps)
 
 
 def truncate_after_fracture(res: RampResult) -> RampResult:
@@ -376,80 +367,88 @@ def _check_status(status: np.ndarray, n_done: int) -> None:
             f"solver diverged at ramp step {int(bad[0]) + 1}")
 
 
-def _device_ramp(model: FeaModel, cfg, sync_every: int, early_stop: bool):
-    """The ramp with device-resident records: (stress, active, disp,
-    status) tensors of n_steps rows written by step index, the per-step
-    seconds (wall time between status reads spread over the steps between
-    them) and the number of steps run. The status rows are read on the
-    host every ``sync_every`` steps (0: only at the end), where the early
-    stop and the divergence check run."""
-    dtype, dev = model.dtype, model.device
-    n_steps = cfg.n_steps
-    use_fac = keeps_factor(model, cfg)
-    active = torch.ones(model.n_elems, dtype=torch.bool, device=dev)
-    u_prev = torch.zeros((model.n_nodes, 3), dtype=dtype, device=dev)
-    anchored = refresh_anchored(model, active)
-    fac = compute_tree_factor(model, active, cfg, anchored) if use_fac \
-        else None
-    stress_b = torch.zeros((n_steps, model.n_elems), dtype=dtype, device=dev)
-    active_b = torch.zeros((n_steps, model.n_elems), dtype=torch.bool,
-                           device=dev)
-    disp_b = torch.zeros((n_steps, 3 * model.n_nodes), dtype=dtype,
-                         device=dev)
-    # float64 rows: the force keeps every bit it has on the device, and the
-    # counts are exact
-    status_b = torch.zeros((n_steps, 4), dtype=torch.float64, device=dev)
+class _DeviceRecords:
+    """The records of ``run_ramp_async`` and ``run_ramp_scan``: (stress,
+    active, disp, status) tensors of n_steps rows on the model's device,
+    written by step index, and the per-step seconds (the wall time of a
+    chunk of steps, from its first step to the status read that closes
+    it, spread over its steps). The status rows are read on the host
+    every ``sync_every`` steps, where the divergence check and the stop on
+    full fracture run, and at the end (``sync_every`` 0: only there, and
+    every step runs)."""
 
-    secs = np.zeros((n_steps,))
-    chunk_lo, chunk_t0 = 0, time.perf_counter()
+    def __init__(self, sync_every: int):
+        self.sync_every = sync_every
 
-    def close_chunk(hi):
-        nonlocal chunk_lo, chunk_t0
-        now = time.perf_counter()
-        if hi > chunk_lo:
-            secs[chunk_lo:hi] = (now - chunk_t0) / (hi - chunk_lo)
-        chunk_lo, chunk_t0 = hi, now
+    def start(self, model: FeaModel, cfg):
+        dtype, dev, n = model.dtype, model.device, cfg.n_steps
+        self.cfg = cfg
+        self.stress = torch.zeros((n, model.n_elems), dtype=dtype, device=dev)
+        self.active = torch.zeros((n, model.n_elems), dtype=torch.bool,
+                                  device=dev)
+        self.disp = torch.zeros((n, 3 * model.n_nodes), dtype=dtype,
+                                device=dev)
+        # float64 rows: the force keeps every bit it has on the device, and
+        # the counts are exact
+        self.status = torch.zeros((n, 4), dtype=torch.float64, device=dev)
+        self.secs = np.zeros((n,))
+        self.done, self.chunk_lo, self.chunk_t0 = 0, 0, None
+        return _fresh_start(model)
 
-    prev_factor = 0.0
-    done = 0
-    for step in range(n_steps):
-        dy_top, dy_bot = _step_factors(cfg, step)
-        factor = step / (n_steps - 1)
-        if cfg.warm_start and prev_factor > 0:
-            x0 = u_prev * (factor / prev_factor)
-        else:
-            x0 = torch.zeros_like(u_prev)
-        u, stress, active_new, total_force, iters, _, converged = ramp_step(
-            model, cfg, active, x0, dy_top, dy_bot, anchored, fac)
+    def record(self, step: int, ts: float, active, out) -> bool:
+        """Write the step's rows; read whether its mask changed."""
+        u, stress, active_new, total_force, iters, _, converged = out
+        if self.chunk_t0 is None:
+            self.chunk_t0 = ts
         with span("fea.records.write"):
-            stress_b[step] = stress
-            active_b[step] = active_new
-            disp_b[step] = u.reshape(-1)
-            status_b[step, 0] = float(converged)
-            status_b[step, 1] = active_new.sum()
-            status_b[step, 2] = float(iters)
-            status_b[step, 3] = total_force
+            self.stress[step] = stress
+            self.active[step] = active_new
+            self.disp[step] = u.reshape(-1)
+            self.status[step, 0] = float(converged)
+            self.status[step, 1] = active_new.sum()
+            self.status[step, 2] = float(iters)
+            self.status[step, 3] = total_force
         # the refresh is data-dependent: one flag a step
         with span("fea.sync.flag"):
-            changed = bool((active_new != active).any())
-        if changed:
-            anchored = refresh_anchored(model, active_new)
-            if use_fac:
-                fac = compute_tree_factor(model, active_new, cfg, anchored)
-        u_prev, active, prev_factor = u, active_new, factor
-        done = step + 1
-        if sync_every > 0 and done % sync_every == 0 and done < n_steps:
-            with span("fea.sync.status"):
-                status = status_b.cpu().numpy()
-            close_chunk(done)
-            _check_status(status, done)
-            if early_stop and status[done - 1, 1] == 0:
-                break
-    with span("fea.sync.status"):
-        status = status_b.cpu().numpy()
-    close_chunk(done)
-    _check_status(status, done)
-    return stress_b, active_b, disp_b, status, secs, done
+            return bool((active_new != active).any())
+
+    def after(self, step: int, u_prev) -> bool:
+        """Read the status where a read is due; stop on full fracture
+        there."""
+        self.done = step + 1
+        if self.sync_every > 0 and self.done % self.sync_every == 0 \
+                and self.done < self.cfg.n_steps:
+            status = self._read_status()
+            return status[self.done - 1, 1] == 0
+        return False
+
+    def _read_status(self) -> np.ndarray:
+        """The status rows on the host; closes the chunk and checks it."""
+        with span("fea.sync.status"):
+            status = self.status.cpu().numpy()
+        done, lo = self.done, self.chunk_lo
+        if done > lo:
+            self.secs[lo:done] = (time.perf_counter() - self.chunk_t0) \
+                / (done - lo)
+        self.chunk_lo, self.chunk_t0 = done, None
+        _check_status(status, done)
+        return status
+
+    def result(self, t0: float) -> RampResult:
+        status = self._read_status()
+        done = self.done
+        factors = np.arange(done) / (self.cfg.n_steps - 1)
+        fd = np.stack([2 * self.cfg.displacement_max * factors,
+                       status[:done, 3]], axis=1)
+        with span("fea.records.fetch"):
+            stress, active, disp = _fetch_records(
+                (self.stress, self.active, self.disp), done)
+        return RampResult(
+            stress_record=stress, active_record=active, disp_record=disp,
+            force_disp=fd,
+            solve_seconds=self.secs[:done],
+            cg_iters=status[:done, 2].astype(np.int64),
+            total_seconds=time.perf_counter() - t0)
 
 
 def _pinned_blocks() -> int:
@@ -481,30 +480,6 @@ def _fetch_records(bufs, done: int):
     return tuple(h.numpy() for h in host)
 
 
-def _device_result(model, cfg, bufs, t0) -> RampResult:
-    stress_b, active_b, disp_b, status, secs, done = bufs
-    factors = np.arange(done) / (cfg.n_steps - 1)
-    fd = np.stack([2 * cfg.displacement_max * factors, status[:done, 3]],
-                  axis=1)
-    with span("fea.records.fetch"):
-        stress, active, disp = _fetch_records((stress_b, active_b, disp_b),
-                                              done)
-    return RampResult(
-        stress_record=stress, active_record=active, disp_record=disp,
-        force_disp=fd,
-        solve_seconds=secs[:done],
-        cg_iters=status[:done, 2].astype(np.int64),
-        total_seconds=time.perf_counter() - t0)
-
-
-def _device_run(model, cfg, sync_every: int, early_stop: bool,
-                t0: float) -> RampResult:
-    """One pull test of the device-resident loop, its records fetched."""
-    with span("fea.ramp"):
-        return _device_result(model, cfg, _device_ramp(
-            model, cfg, sync_every, early_stop), t0)
-
-
 def run_ramp_async(coords, conn, cfg, device=DEFAULT_DEVICE,
                    model: Optional[FeaModel] = None,
                    sync_every: int = 8) -> RampResult:
@@ -517,11 +492,9 @@ def run_ramp_async(coords, conn, cfg, device=DEFAULT_DEVICE,
     steps. On the card the records land in page-locked host memory that
     the result owns: the copies are complete when this returns, and a
     later pull test on the same model writes elsewhere."""
-    t0 = time.perf_counter()
-    if model is None:
-        model = build_model(coords, conn, cfg, device)
-    return truncate_after_fracture(_device_run(
-        model, cfg, max(int(sync_every), 1), True, t0))
+    return truncate_after_fracture(_pull_test(
+        coords, conn, cfg, device, model,
+        _DeviceRecords(max(int(sync_every), 1)), _ramp_steps))
 
 
 def run_ramp_scan(coords, conn, cfg, device=DEFAULT_DEVICE,
@@ -533,8 +506,6 @@ def run_ramp_scan(coords, conn, cfg, device=DEFAULT_DEVICE,
     route runs the same loop: the reference sends its large models to
     ``run_ramp`` because one compiled program for all steps is costly
     there, and no such program exists here."""
-    t0 = time.perf_counter()
-    if model is None:
-        model = build_model(coords, conn, cfg, device)
-    res = _device_run(model, cfg, 0, False, t0)
+    res = _pull_test(coords, conn, cfg, device, model,
+                     _DeviceRecords(0), _ramp_steps)
     return res._replace(solve_seconds=np.full((cfg.n_steps,), np.nan))

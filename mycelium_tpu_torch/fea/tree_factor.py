@@ -949,9 +949,10 @@ def tree_anchored(plan: TreePlan, model, active):
     Each fixpoint trip is one plain neighbour sweep (grip seeding and cycle
     edges) plus a sweep in slot space that hops a whole path in
     log2(longest path) doubling rounds and crosses the attachments, so a
-    handful of trips do where the plain sweep (``anchored_mask_device``)
-    needs the graph's diameter. Fill edges count as inactive: only the hop
-    length shrinks. One host read a trip (the ``changed`` flag)."""
+    handful of trips do where the plain sweep needs the graph's diameter;
+    on a forest with no levels (no free node) a trip is the plain sweep.
+    Fill edges count as inactive: only the hop length shrinks. One host
+    read a trip (the ``changed`` flag)."""
     meta = plan.meta
     L = len(meta.level_steps)
     grip = model.top_nodes | model.bot_nodes

@@ -5,9 +5,9 @@ whose source note says what bounds it and how).
 It replaces no TPU kernel: the JAX package computes the mask in plain jnp
 (``mycelium_tpu/fea/tree_jax.py::tree_anchored``). Its plain versions stay
 where they are, unchanged: ``fea/tree_factor.py::tree_anchored`` (the
-fixpoint accelerated by the forest) and ``fea/ramp.py::anchored_mask_device``
-(the plain neighbour sweep), which ``fea/ramp.py::refresh_anchored`` runs on
-CPU tensors, and ``fea/ramp.py::anchored_mask_host`` (scipy's connected
+fixpoint accelerated by the forest, the plain neighbour sweep on a forest
+with no levels), which ``fea/ramp.py::refresh_anchored`` runs on CPU
+tensors, and ``fea/ramp.py::anchored_mask_host`` (scipy's connected
 components), the oracle the card-side checks hold the kernel to.
 """
 

@@ -1,7 +1,7 @@
 """K7, the grip reachability in one launch (``kernels/anchored.py``), and
 the route of ``fea/ramp.py::refresh_anchored``: CUDA tensors launch K7 for
-every model, CPU tensors take the plain fixpoint (``tree_anchored`` where
-the model has a forest, else ``anchored_mask_device``).
+every model, CPU tensors take the plain fixpoint ``tree_anchored`` for
+every model, a forest with no levels included.
 
 On the card K7 is held to ``anchored_mask_host`` (scipy) and to the plain
 ``tree_anchored`` element for element, and a 309k-DOF pull test's records
@@ -19,8 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from mycelium_tpu_torch.config import hybrid_fea_config
 from mycelium_tpu_torch.fea import build_model, ramp, run_ramp_async
-from mycelium_tpu_torch.fea.ramp import (anchored_mask_device,
-                                         anchored_mask_host, refresh_anchored)
+from mycelium_tpu_torch.fea.ramp import anchored_mask_host, refresh_anchored
 from mycelium_tpu_torch.fea.tree_factor import tree_anchored
 from mycelium_tpu_torch.kernels import (AnchoredLaunch, launch_counts,
                                         reset_launch_counts)
@@ -170,18 +169,25 @@ def test_k7_phases_emulated_equal_host(mesh):
                                       anchored_mask_host(conn, act, grip))
 
 
-@pytest.mark.parametrize("mesh", ["synthetic", "random_forest"])
+@pytest.mark.parametrize("mesh", ["synthetic", "random_forest",
+                                  "level-less"])
 def test_refresh_on_cpu_takes_the_plain_path(mesh):
-    """CPU tensors keep the plain fixpoint: more than one trip a refresh
-    on a drawn mask, each with its flag read, and no launch of K7; the
-    mask is scipy's."""
-    if mesh == "synthetic":
-        coords, conn = synthetic_mesh(3000)
-    else:
+    """CPU tensors keep the plain fixpoint ``tree_anchored``: more than
+    one trip a refresh on a drawn mask, each with its flag read, and no
+    launch of K7; the mask is scipy's. The level-less case has its grips
+    over the whole extent, so no node is free and the forest has no
+    levels: there the fixpoint is the plain neighbour sweep, and its first
+    trip finds every node anchored."""
+    if mesh == "random_forest":
         coords, conn = random_forest_mesh(600, 12, seed=3)
-    cfg = hybrid_fea_config(grip_length=grip_for(coords))
+    else:
+        coords, conn = synthetic_mesh(300 if mesh == "level-less" else 3000)
+    level_less = mesh == "level-less"
+    cfg = hybrid_fea_config(
+        grip_length=grip_for(coords, 1.0 if level_less else 0.15))
     m = build_model(coords, conn, cfg, "cpu")
-    assert m.tree_fast is not None, "the plain path to test is the forest's"
+    assert (m.tree_fast is None) == level_less
+    assert (m.tree.meta.level_steps == ()) == level_less
     grip = (m.top_nodes | m.bot_nodes).numpy()
     act_np = np.random.default_rng(5).random(m.n_elems) >= 0.05
     reset_launch_counts()
@@ -192,12 +198,11 @@ def test_refresh_on_cpu_takes_the_plain_path(mesh):
     profiling.reset_readings()
     assert launch_counts()["anchored"] == 0
     assert reg["fea.refresh"]["count"] == 1
-    assert reg["fea.refresh.trip"]["count"] > 1
-    assert reg["fea.sync.trip"]["count"] == reg["fea.refresh.trip"]["count"]
+    trips = reg["fea.refresh.trip"]["count"]
+    assert trips == 1 if level_less else trips > 1
+    assert reg["fea.sync.trip"]["count"] == trips
     host = anchored_mask_host(np.asarray(conn, np.int64), act_np, grip)
     np.testing.assert_array_equal(got.numpy(), host)
-    np.testing.assert_array_equal(
-        anchored_mask_device(m, torch.as_tensor(act_np)).numpy(), host)
 
 
 def test_every_model_carries_k7_and_cpu_tensors_are_refused():

@@ -1,5 +1,5 @@
 """The records of the device-resident pull test (``fea/ramp.py``:
-``_device_result``, ``_fetch_records``): on the card the three record
+``_DeviceRecords``, ``_fetch_records``): on the card the three record
 buffers are copied into page-locked host tensors of the result's own, on
 the CPU they are taken as ``.cpu()`` gives them.
 
@@ -94,14 +94,16 @@ def test_results_own_their_records(device):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_records_equal_the_pageable_fetch(device, case):
-    """``_device_result``'s records against the parent's fetch,
+    """``_DeviceRecords``'s records against the parent's fetch,
     ``b[:done].cpu()``, of the same device buffers: bit for bit."""
     coords, conn, cfg, m = _case(case, device)
-    bufs = ramp._device_ramp(m, cfg, 8, True)
-    stress_b, active_b, disp_b, status, _, done = bufs
+    recs = ramp._loop(m, cfg, *ramp._ramp_steps(m, cfg),
+                      ramp._DeviceRecords(8))
+    done = recs.done
     assert (done < cfg.n_steps) == (case == "early stop"), done
-    res = ramp._device_result(m, cfg, bufs, 0.0)
-    for f, b in zip(RECORDS, (stress_b, active_b, disp_b)):
+    res = recs.result(0.0)
+    status = recs.status.cpu().numpy()
+    for f, b in zip(RECORDS, (recs.stress, recs.active, recs.disp)):
         want = b[:done].cpu().numpy()
         got = getattr(res, f)
         assert got.dtype == want.dtype and got.shape == want.shape, f
