@@ -68,6 +68,16 @@ fails:
    the kernel timed on a 5% fractured mask (call and device ms) beside
    its byte bound and the plain ``tree_anchored``'s time; its launches
    are read on the FEA path (the ramps' refreshes);
+6b. K8 (a ramp step's post-solve and record rows) against
+   ``post_solve_plain`` on CPU copies of the same inputs at 22,125 and
+   309k DOF, bit for bit: stress, mask, disp, status and flag under a zero
+   displacement and under drawn ones that fracture elements, on the
+   intact mask, the top grip cut off and 5 masks with 1-50% of the
+   elements inactive; ``fea.ramp.post_solve`` into one set of rows timed
+   on a 5% fractured mask (call and device ms) beside K8's byte bound and
+   the plain counterpart on the card; its launches are read on the FEA
+   path (the ramps' post-solves) and must be there on the checkpoint,
+   coupled, 3D pipeline, sharded and headline paths;
 7. the FEA path, launch counts set to 0 before and read after: a cold
    solve at 22,125 DOF through K6, checked in float64 against the
    stiffness the port assembles (``fea/assemble.py::assemble_scipy``, on
@@ -1481,6 +1491,96 @@ def compare_anchored(model, conn, model_b, conn_b, device, rng) -> dict:
     return row
 
 
+def post_solve_reading(model, cfg, device, row: dict, suffix: str) -> None:
+    """K8 on one model, into ``row`` under keys ending in ``suffix``: its
+    rows (stress, mask, disp, status, flag) against ``post_solve_plain`` on
+    CPU copies of the same inputs, bit for bit (the run fails on a
+    difference), under a zero displacement on the intact mask and under
+    displacements drawn so that some elements pass the fracture strain, on
+    the intact mask, the top grip cut off and 5 masks with 1-50% of the
+    elements inactive; then the step as the ramp launches it
+    (``fea.ramp.post_solve`` into one set of rows, as ``_DeviceRecords``
+    hands them) timed on a 5% fractured mask, beside K8's byte bound and
+    the plain counterpart on the card."""
+    import torch
+    from mycelium_tpu_torch.fea.elements import ElementGeometry
+    from mycelium_tpu_torch.fea.ramp import post_solve
+    from mycelium_tpu_torch.kernels import post_solve_plain
+    label = f"K8 post_solve, {model.n_dof} DOF"
+    launch = model.post_launch
+    # its own generator: the later phases draw what they drew before
+    rng = np.random.default_rng(8)
+    conn = model.conn.cpu().numpy()
+    top = model.top_nodes.cpu().numpy()
+    g = model.geom
+    cpu = dict(conn=model.conn.cpu(), top=model.top_nodes.cpu(),
+               geom=ElementGeometry(n=g.n.cpu(), length=g.length.cpu(),
+                                    k_ax=g.k_ax.cpu(), k_bd=g.k_bd.cpu()))
+    # std of an element's axial stretch 0.71 max_strain·L: ~16% of the
+    # active elements pass the fracture strain
+    scale = 0.5 * cfg.max_strain * float(g.length.median())
+    masks = [np.ones(model.n_elems, bool),
+             ~(top[conn[:, 0]] | top[conn[:, 1]])]
+    masks += [rng.random(model.n_elems) >= f
+              for f in np.linspace(0.01, 0.5, 5)]
+    cases = [(np.zeros((model.n_nodes, 3)), masks[0])]
+    cases += [(rng.standard_normal((model.n_nodes, 3)) * scale, m)
+              for m in masks]
+    off = fractured = 0
+    for k, (u_np, act_np) in enumerate(cases):
+        u = torch.as_tensor(u_np, dtype=model.dtype, device=device)
+        act = torch.as_tensor(act_np, device=device)
+        got = launch.launch(u, act, launch.rows(), cfg.e_mod,
+                            cfg.max_strain, k % 2 == 0, k)
+        want = post_solve_plain(u.cpu(), cpu["conn"], cpu["geom"],
+                                cpu["top"], act.cpu(), cfg.e_mod,
+                                cfg.max_strain, k % 2 == 0, k)
+        for a, b in zip(got, want):
+            a = a.cpu().numpy().reshape(-1).view(np.uint8)
+            off += int((a != b.numpy().reshape(-1).view(np.uint8)).sum())
+        fractured += int(act_np.sum()) - int(want.status[1])
+    u = torch.as_tensor(rng.standard_normal((model.n_nodes, 3)) * scale,
+                        dtype=model.dtype, device=device)
+    act = torch.as_tensor(rng.random(model.n_elems) >= 0.05, device=device)
+    rows = launch.rows()
+
+    def step():
+        return post_solve(model, cfg, u, act, rows, True, 7)
+
+    ms = timed_ms(step, device, 50)
+    pms = timed_ms(lambda: post_solve_plain(
+        u, model.conn, g, model.top_nodes, act, cfg.e_mod, cfg.max_strain,
+        True, 7), device, 5)
+    b = bound(launch.io_bytes(), 0)
+    log(f"{label}: {len(cases)} inputs, {off} bytes off the plain "
+        f"counterpart's ({fractured} elements fractured in all); call "
+        f"{ms:.4f} ms (plain {pms:.3f} ms, {pms / ms:.0f}x; bound "
+        f"{b[0]:.5f} ms by {b[1]}, {launch.io_bytes()} B)")
+    if off:
+        raise AssertionError(f"{label}: {off} bytes differ from "
+                             "post_solve_plain")
+    if not fractured:
+        raise AssertionError(f"{label}: no input fractured an element")
+    row.update({f"ms{suffix}": ms, f"plain_ms{suffix}": pms,
+                f"bound_ms{suffix}": b[0], "bound_by": b[1],
+                "max_abs_err": max(row.get("max_abs_err", 0.0),
+                                   float(off))})
+    defer_device_ms(label, row, step, 50, f"device_ms{suffix}",
+                    f"ms{suffix}")
+
+
+def compare_post_solve(model, cfg, model_b, cfg_b, device) -> dict:
+    """Phase 6b: K8 against its plain counterpart at 22,125 and 309k DOF,
+    each timed (``post_solve_reading``); the row's numbers are the 309k
+    ones, the 22k ones ride beside them."""
+    row = dict(name="post_solve", route="cuda",
+               source="mycelium_tpu_torch/kernels/csrc/post_solve.cu",
+               replaces=None, library_ms=None)
+    post_solve_reading(model_b, cfg_b, device, row, "")
+    post_solve_reading(model, cfg, device, row, "_22k")
+    return row
+
+
 def forest_oracle_check(model, coords, conn, cfg, device) -> dict:
     """A8: one forest apply of the hybrid on the intact system (K2
     factoring and K3 applying, through the model's ``PcrLaunch``) against
@@ -2656,7 +2756,8 @@ def headline_path(device, n_small: int, n_big: int) -> tuple:
     raises on a step that did not) and recorded 1 to n_steps steps; every
     number of the row finite and positive. Then where the ramp's time goes,
     synchronised readings on the ramp's model: its recorded steps' solves
-    (``ramp_solve_ms``), ``post_solve`` once a solve, the reachability
+    (``ramp_solve_ms``), ``post_solve`` once a solve (K8 into one set of
+    rows, as ``_DeviceRecords`` hands them), the reachability
     refreshes (timed on the last ramp's final mask) and the rest (record
     writes, flag reads, the records' fetch, solves past the records).
     Returns (a summary, the phase's counts)."""
@@ -2716,7 +2817,9 @@ def headline_path(device, n_small: int, n_big: int) -> tuple:
     act = torch.ones(model.n_elems, dtype=torch.bool, device=device)
     final = torch.as_tensor(last.active_record[-1], device=device)
     u = torch.zeros((model.n_nodes, 3), dtype=model.dtype, device=device)
-    post_ms = timed_ms(lambda: post_solve(model, cfg, u, act), device, 10)
+    rows = model.post_launch.rows()
+    post_ms = timed_ms(lambda: post_solve(model, cfg, u, act, rows), device,
+                       10)
     refresh_ms = timed_ms(lambda: refresh_anchored(model, final), device, 5)
     n_refresh = ramp_refreshes(last)
     step_ms = ramp_solve_ms(model, cfg, last, device)
@@ -2836,6 +2939,10 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
     t0 = time.perf_counter()
     rows.append(compare_anchored(model, conn, model_b, conn_b, device, rng))
     log(f"K7 comparison phase {time.perf_counter() - t0:.2f} s")
+    # K8 against its plain counterpart at 22k and 309k, timed
+    t0 = time.perf_counter()
+    rows.append(compare_post_solve(model, cfg, model_b, cfg_b, device))
+    log(f"K8 comparison phase {time.perf_counter() - t0:.2f} s")
     k6_row = next(r for r in rows if r["name"] == "tree_cg")
     k6_row["max_abs_err"] = max(k6_row["max_abs_err"],
                                 *(d["max_abs_err"] for d in deep.values()))
@@ -2986,6 +3093,7 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
            "pcr_apply": ("FEA", fea_counts),
            "tree_cg": ("FEA", fea_counts),
            "anchored": ("FEA", fea_counts),
+           "post_solve": ("FEA", fea_counts),
            "chain_cg": ("sweep", sweep_counts),
            "anast_scan": ("growth", grow_counts)}
     paths = {"FEA": fea_counts, "sweep": sweep_counts,
@@ -3006,19 +3114,24 @@ def run(device, n_small: int = 7375, n_big: int = 103000,
         missing = [f"{r['path']} {r['name']}" for r in rows
                    if r["launches"] < 1]
         missing += [f"sweep {k}" for k in hyb + solve if sweep_counts[k] < 1]
-        missing += [f"coupled {k}" for k in pipe_solve + ("anast_scan",)
+        # every pull test's post-solve on the card is K8
+        missing += [f"coupled {k}" for k in pipe_solve + ("anast_scan",
+                                                          "post_solve")
                     if pipe_counts[k] < 1]
-        missing += [f"checkpoint {k}" for k in ("tree_cg", "anast_scan")
+        missing += [f"checkpoint {k}" for k in ("tree_cg", "anast_scan",
+                                                "post_solve")
                     if ckpt_counts[k] < 1]
         missing += [f"{p} anast_scan" for p, c in (
             ("growth_3d", g3_counts), ("growth_9cell", g9_counts),
             ("pipeline_3d", p3_counts), ("p11", p11_counts),
             ("sharded_growth", shard_growth_counts))
             if c["anast_scan"] < 1]
-        missing += ["pipeline_3d tree_cg"] * (p3_counts["tree_cg"] < 1)
-        missing += ["headline tree_cg"] * (head_counts["tree_cg"] < 1)
+        missing += [f"pipeline_3d {k}" for k in ("tree_cg", "post_solve")
+                    if p3_counts[k] < 1]
+        missing += [f"headline {k}" for k in ("tree_cg", "post_solve")
+                    if head_counts[k] < 1]
         missing += [f"sharded {k}" for k in ("pcr_factor", "pcr_apply",
-                                             "ordered_sum")
+                                             "ordered_sum", "post_solve")
                     if shard_counts[k] < 1]
         if missing:
             raise AssertionError(f"kernels never launched: {missing}")

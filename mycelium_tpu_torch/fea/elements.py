@@ -65,11 +65,21 @@ def element_stiffness_batch(geom: ElementGeometry):
     bot = torch.cat([-blk, blk], dim=2)
     return torch.cat([top, bot], dim=1)                   # (E,6,6)
 
+
+def dot3(a, b):
+    """Row-wise dot product of (E, 3) tensors, added in the fixed order
+    (a0·b0 + a1·b1) + a2·b2 on every device: the order K8
+    (``kernels/csrc/post_solve.cu``) takes, and on the CPU the bits of
+    ``(a * b).sum(dim=1)``."""
+    p = a * b
+    return (p[:, 0] + p[:, 1]) + p[:, 2]
+
+
 def element_forces(u, conn, geom: ElementGeometry, active):
     """(E, 3) end force on node n1 (n2 receives -f); inactive elements
     contribute zero."""
     d = u[conn[:, 0]] - u[conn[:, 1]]
-    nd = (geom.n * d).sum(dim=1)
+    nd = dot3(geom.n, d)
     f = (geom.k_ax * nd)[:, None] * geom.n \
         + geom.k_bd[:, None] * (d - nd[:, None] * geom.n)
     return f * active[:, None].to(f.dtype)
@@ -78,4 +88,4 @@ def element_forces(u, conn, geom: ElementGeometry, active):
 def element_strain(u, conn, geom: ElementGeometry):
     """Axial strain n·(u2 - u1)/L on the undeformed geometry."""
     du = u[conn[:, 1]] - u[conn[:, 0]]
-    return (geom.n * du).sum(dim=1) / geom.length.clamp_min(1e-12)
+    return dot3(geom.n, du) / geom.length.clamp_min(1e-12)

@@ -63,6 +63,10 @@ class FeaModel:
     # of an active mask in one launch, for CUDA tensors; made with every
     # model, it allocates its scratch at its first launch
     anchored_launch: object | None = None
+    # K8 bound to this model (kernels.PostSolveLaunch): a ramp step's
+    # post-solve and record rows in one launch, for CUDA tensors; made with
+    # every model, it allocates its scratch at its first launch
+    post_launch: object | None = None
     # the model can run the whole-solve kernel K6 (float32, a forest whose
     # tables K6 can read, within the card's memory): a fact of the model,
     # whatever configuration built it. fea/solve.py::solve_route sends
@@ -237,13 +241,14 @@ def _build_model(coords, conn, cfg, device) -> FeaModel:
 
 def with_kernels(model: FeaModel) -> FeaModel:
     """``model`` with its node incidence CSR and its whole-solve kernels:
-    its coarse plans, K5's
-    launch (bound at its first solve), K7's (bound at its first refresh)
-    and, where its forest has levels, K2
-    bound to its levels, the tree kernel's index tables, whether it can run
-    that kernel and, if it can, the kernel's launch bound to it."""
+    its coarse plans, K5's launch (bound at its first solve), K7's (bound
+    at its first refresh), K8's (bound at its first post-solve) and, where
+    its forest has levels, K2 bound to its levels, the tree kernel's index
+    tables, whether it can run that kernel and, if it can, the kernel's
+    launch bound to it."""
     from ..kernels.anchored import AnchoredLaunch
     from ..kernels.chain_cg import ChainCgLaunch
+    from ..kernels.post_solve import PostSolveLaunch
     from ..kernels.tree_cg import TreeCgLaunch
     from .coarse import CoarsePlans
     plans = CoarsePlans(model.chain, model.n_elems)
@@ -253,7 +258,9 @@ def with_kernels(model: FeaModel) -> FeaModel:
                     coarse_plans=plans, chain_launch=ChainCgLaunch(
         plans, model.free_nodes, model.top_nodes, model.bot_nodes),
                     anchored_launch=AnchoredLaunch(
-        model.conn, model.top_nodes, model.bot_nodes))
+        model.conn, model.top_nodes, model.bot_nodes),
+                    post_launch=PostSolveLaunch(
+        model.conn, model.geom, model.top_nodes))
     launch = None
     if model.tree.meta.level_steps:
         tables = build_tree_kernel_tables(model.tree, model.conn)

@@ -25,15 +25,26 @@ step's records on the host every step. ``_DeviceRecords`` (``run_ramp_async``,
 step index and fetches them once at the end: on the card into page-locked
 host tensors of their own, by three asynchronous copies and one wait, so
 the result's arrays are complete when it is returned and no later test
-writes over them. What it still reads on the host each step is the solve's
-three stats (one read, in ``solve_displacement``) and one ``changed``
-flag; on the CPU also one flag a trip of the reachability fixpoint after a
-fracture (on the card the refresh is one launch and reads nothing back).
+writes over them.
+
+On the card a step's post-solve is one launch of K8
+(``kernels.PostSolveLaunch``, every driver): stress, fracture, the top
+grip's reaction and the counts, written straight into the step's record
+rows (``_DeviceRecords``' own rows; fresh ones for ``_Records``, which reads
+them on the host and keeps its divergence refusal and mask compare there),
+with the status row and a ``changed`` flag. So between the solve's stats
+read and the step's flag read the host issues that one launch. On the CPU
+``post_solve`` is the plain arithmetic and writes the same rows and flag
+itself. What ``_DeviceRecords`` reads on the host each step is the solve's
+three stats (one read, in ``solve_displacement``) and the flag; on the CPU
+also one flag a trip of the reachability fixpoint after a fracture (on the
+card the refresh is one launch and reads nothing back).
 
 Under a profiler the loop holds the spans of ``utils.profiling``: a pull
-test (``fea.ramp``), the refresh and each of its trips, ``post_solve``,
-each host read (``fea.sync.*``) and the records' writes and fetches
-(``fea.records.*``); ``solve_displacement`` holds its own. The card's
+test (``fea.ramp``), the refresh and each of its trips, ``post_solve`` (on
+the card each K8 launch also counts one ``fea.post.kernel``), each host
+read (``fea.sync.*``) and the records' writes (the CPU's, inside
+``post_solve``) and fetches (``fea.records.*``); ``solve_displacement`` holds its own. The card's
 fetch counts its bytes (``fea.records.pinned_bytes``) and whether it had to
 page-lock new host memory (``fea.records.pinned_fresh``).
 """
@@ -47,6 +58,8 @@ import numpy as np
 import torch
 
 from ..devices import DEFAULT_DEVICE
+from ..kernels.post_solve import (ACTIVE, CONVERGED, FORCE, ITERS, PostRows,
+                                  status_row)
 from ..utils import profiling
 from ..utils.profiling import count, span
 from .elements import element_strain
@@ -110,9 +123,29 @@ def keeps_factor(model: FeaModel, cfg) -> bool:
     return cfg.precond == "tree" and solve_route(model, cfg) != "tree_cg"
 
 
-def post_solve(model: FeaModel, cfg, u, active):
-    """Reactions -> stress -> fracture for a solved displacement field."""
+def post_solve(model: FeaModel, cfg, u, active, rows=None, converged=True,
+               iters=0):
+    """Reactions -> stress -> fracture for a solved displacement field:
+    (stress, active_new, total_force), and the step's record rows
+    (``kernels.PostRows``) where ``rows`` is given: stress, mask, a copy of
+    ``u``, the status row (``kernels.post_solve.status_row``, with the
+    solve's ``converged`` and ``iters``) and the ``changed`` flag.
+
+    On CUDA tensors one launch of K8 (``model.post_launch``) writes the rows
+    (fresh ones where none are given), the force summed in float64 over the
+    top grip's element ends; it returns their stress, mask and force (a
+    float64 view). Under a profiler each launch counts one
+    ``fea.post.kernel``. On CPU tensors the plain arithmetic: the top grip's
+    y-reactions of the whole operator, strain, stress, fracture, then the
+    rows' writes (span ``fea.records.write``)."""
     with span("fea.post_solve"):
+        if u.device.type == "cuda":
+            launch = model.post_launch
+            rows = launch.launch(u, active,
+                                 launch.rows() if rows is None else rows,
+                                 cfg.e_mod, cfg.max_strain, converged, iters)
+            count("fea.post.kernel")
+            return rows.stress, rows.active, rows.status[FORCE]
         f_react = apply_stiffness(model, u, active,
                                   "scatter" if cfg.operator == "scatter"
                                   else "ell")
@@ -120,15 +153,25 @@ def post_solve(model: FeaModel, cfg, u, active):
         strain = element_strain(u, model.conn, model.geom)
         stress = torch.where(active, cfg.e_mod * strain, 0.0)
         active_new = active & (strain.abs() <= cfg.max_strain)
+        if rows is not None:
+            with span("fea.records.write"):
+                rows.stress.copy_(stress)
+                rows.active.copy_(active_new)
+                rows.disp.copy_(u.reshape(-1))
+                rows.status.copy_(status_row(converged, active_new.sum(),
+                                             iters, total_force))
+                rows.changed.copy_((active_new != active).any())
         return stress, active_new, total_force
 
 
 def ramp_step(model: FeaModel, cfg, active, x0, dy_top: float,
-              dy_bot: float, anchored=None, tree_factor_val=None):
-    """One ramp step: solve -> reactions -> stress -> fracture."""
+              dy_bot: float, anchored=None, tree_factor_val=None, rows=None):
+    """One ramp step: solve -> reactions -> stress -> fracture; the
+    post-solve writes ``rows`` where given (``post_solve``)."""
     res = solve_displacement(model, active, dy_top, dy_bot, x0, cfg,
                              anchored, tree_factor_val=tree_factor_val)
-    stress, active_new, total_force = post_solve(model, cfg, res.x, active)
+    stress, active_new, total_force = post_solve(
+        model, cfg, res.x, active, rows, res.converged, res.iters)
     return (res.x, stress, active_new, total_force, res.iters, res.resnorm,
             res.converged)
 
@@ -172,6 +215,10 @@ class _Records:
                 torch.as_tensor(self.mask, device=dev),
                 torch.as_tensor(u_np, dtype=model.dtype, device=dev),
                 prev_factor)
+
+    def rows(self, step: int):
+        """None: the step's post-solve writes fresh rows, read here."""
+        return None
 
     def record(self, step: int, ts: float, active, out) -> bool:
         """Refuse a solve that did not converge, read the step's records
@@ -239,10 +286,11 @@ def _fresh_start(model: FeaModel):
 
 def _loop(model: FeaModel, cfg, step_fn, keeps: bool, recs):
     """The pull test's step loop, for every ramp function.
-    ``step_fn(active, x0, dy_top, dy_bot, anchored, factor)`` is the step
-    (what ``ramp_step`` returns), and the tree-PC factorization is kept
-    between steps where ``keeps``. ``recs`` keeps the records: ``start``
-    gives the first step and its state, ``record`` takes the step's
+    ``step_fn(active, x0, dy_top, dy_bot, anchored, factor, rows)`` is the
+    step (what ``ramp_step`` returns), and the tree-PC factorization is
+    kept between steps where ``keeps``. ``recs`` keeps the records:
+    ``start`` gives the first step and its state, ``rows`` the step's record
+    rows for the post-solve to write (or None), ``record`` takes the step's
     results and says whether the mask changed, and ``after``, called once
     the refresh is enqueued, says whether to stop. Returns ``recs``."""
     first, active, u_prev, prev_factor = recs.start(model, cfg)
@@ -258,7 +306,8 @@ def _loop(model: FeaModel, cfg, step_fn, keeps: bool, recs):
         else:
             x0 = torch.zeros_like(u_prev)
         ts = time.perf_counter()
-        out = step_fn(active, x0, dy_top, dy_bot, anchored, fac)
+        out = step_fn(active, x0, dy_top, dy_bot, anchored, fac,
+                      recs.rows(step))
         u, active_new = out[0], out[2]
         if recs.record(step, ts, active, out):
             # fracture changed the topology: refresh grip reachability and
@@ -275,9 +324,9 @@ def _loop(model: FeaModel, cfg, step_fn, keeps: bool, recs):
 def _ramp_steps(model: FeaModel, cfg):
     """The step of ``run_ramp``, ``run_ramp_async`` and ``run_ramp_scan``
     (``ramp_step``, looked up at every call) and its factor rule."""
-    def step_fn(active, x0, dy_top, dy_bot, anchored, fac):
+    def step_fn(active, x0, dy_top, dy_bot, anchored, fac, rows):
         return ramp_step(model, cfg, active, x0, dy_top, dy_bot, anchored,
-                         fac)
+                         fac, rows)
     return step_fn, keeps_factor(model, cfg)
 
 
@@ -333,10 +382,10 @@ def run_ramp_sharded(coords, conn, cfg, device=DEFAULT_DEVICE,
     def sharded_steps(model, cfg):
         solver = sharded_cg_solver(model, cfg, group)
 
-        def step_fn(active, x0, dy_top, dy_bot, anchored, fac):
+        def step_fn(active, x0, dy_top, dy_bot, anchored, fac, rows):
             res = solver(active, dy_top, dy_bot, x0, anchored, fac)
-            stress, active_new, total_force = post_solve(model, cfg, res.x,
-                                                         active)
+            stress, active_new, total_force = post_solve(
+                model, cfg, res.x, active, rows, res.converged, res.iters)
             return (res.x, stress, active_new, total_force, res.iters,
                     res.resnorm, res.converged)
         # the sharded solver has no whole-solve route
@@ -357,10 +406,10 @@ def truncate_after_fracture(res: RampResult) -> RampResult:
 
 
 def _check_status(status: np.ndarray, n_done: int) -> None:
-    """Raise if a step whose network was still alive did not converge.
-    status rows: [converged, active elements after, iterations, force]."""
-    conv = status[:n_done, 0] > 0
-    alive_before = np.concatenate([[1.0], status[:n_done - 1, 1]]) > 0
+    """Raise if a step whose network was still alive did not converge
+    (``status``: the steps' status rows)."""
+    conv = status[:n_done, CONVERGED] > 0
+    alive_before = np.concatenate([[1.0], status[:n_done - 1, ACTIVE]]) > 0
     bad = np.nonzero(~conv & alive_before)[0]
     if len(bad):
         raise SolveDivergedError(
@@ -372,10 +421,12 @@ class _DeviceRecords:
     active, disp, status) tensors of n_steps rows on the model's device,
     written by step index, and the per-step seconds (the wall time of a
     chunk of steps, from its first step to the status read that closes
-    it, spread over its steps). The status rows are read on the host
-    every ``sync_every`` steps, where the divergence check and the stop on
-    full fracture run, and at the end (``sync_every`` 0: only there, and
-    every step runs)."""
+    it, spread over its steps). The step's post-solve writes its rows and
+    the ``changed`` flag (on the card in K8's one launch), and ``record``
+    reads the flag on the host. The status rows are
+    read on the host every ``sync_every`` steps, where the divergence check
+    and the stop on full fracture run, and at the end (``sync_every`` 0:
+    only there, and every step runs)."""
 
     def __init__(self, sync_every: int):
         self.sync_every = sync_every
@@ -391,26 +442,25 @@ class _DeviceRecords:
         # float64 rows: the force keeps every bit it has on the device, and
         # the counts are exact
         self.status = torch.zeros((n, 4), dtype=torch.float64, device=dev)
+        # the flag the post-solve writes each step
+        self.changed = torch.zeros((), dtype=torch.bool, device=dev)
         self.secs = np.zeros((n,))
         self.done, self.chunk_lo, self.chunk_t0 = 0, 0, None
         return _fresh_start(model)
 
+    def rows(self, step: int) -> PostRows:
+        """The step's rows and the flag, for its post-solve to write."""
+        return PostRows(self.stress[step], self.active[step],
+                        self.disp[step], self.status[step], self.changed)
+
     def record(self, step: int, ts: float, active, out) -> bool:
-        """Write the step's rows; read whether its mask changed."""
-        u, stress, active_new, total_force, iters, _, converged = out
+        """Read whether the step's mask changed (its post-solve wrote the
+        rows)."""
         if self.chunk_t0 is None:
             self.chunk_t0 = ts
-        with span("fea.records.write"):
-            self.stress[step] = stress
-            self.active[step] = active_new
-            self.disp[step] = u.reshape(-1)
-            self.status[step, 0] = float(converged)
-            self.status[step, 1] = active_new.sum()
-            self.status[step, 2] = float(iters)
-            self.status[step, 3] = total_force
         # the refresh is data-dependent: one flag a step
         with span("fea.sync.flag"):
-            return bool((active_new != active).any())
+            return bool(self.changed)
 
     def after(self, step: int, u_prev) -> bool:
         """Read the status where a read is due; stop on full fracture
@@ -419,7 +469,7 @@ class _DeviceRecords:
         if self.sync_every > 0 and self.done % self.sync_every == 0 \
                 and self.done < self.cfg.n_steps:
             status = self._read_status()
-            return status[self.done - 1, 1] == 0
+            return status[self.done - 1, ACTIVE] == 0
         return False
 
     def _read_status(self) -> np.ndarray:
@@ -439,7 +489,7 @@ class _DeviceRecords:
         done = self.done
         factors = np.arange(done) / (self.cfg.n_steps - 1)
         fd = np.stack([2 * self.cfg.displacement_max * factors,
-                       status[:done, 3]], axis=1)
+                       status[:done, FORCE]], axis=1)
         with span("fea.records.fetch"):
             stress, active, disp = _fetch_records(
                 (self.stress, self.active, self.disp), done)
@@ -447,7 +497,7 @@ class _DeviceRecords:
             stress_record=stress, active_record=active, disp_record=disp,
             force_disp=fd,
             solve_seconds=self.secs[:done],
-            cg_iters=status[:done, 2].astype(np.int64),
+            cg_iters=status[:done, ITERS].astype(np.int64),
             total_seconds=time.perf_counter() - t0)
 
 

@@ -34,15 +34,6 @@ def resident_blocks(device_index: int) -> tuple:
     return per.value, sms.value
 
 
-def _check(name, t, shape, dtype, device):
-    if t.device != device or t.dtype != dtype or \
-            tuple(t.shape) != tuple(shape) or not t.is_contiguous():
-        raise ValueError(
-            f"anchored: {name} must be a contiguous {dtype} tensor of shape "
-            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "
-            f"{t.device} (contiguous={t.is_contiguous()})")
-
-
 class AnchoredLaunch:
     """K7 bound to one model: made with the model (``fea/model.py::
     with_kernels``); at its first launch it validates the model's
@@ -68,9 +59,11 @@ class AnchoredLaunch:
         if dev.type != "cuda":
             raise ValueError(f"anchored: the model's tensors are on {dev}; "
                              "the kernel takes CUDA tensors only")
-        _check("conn", self.conn, (self.n_elems, 2), torch.int64, dev)
-        _check("top_nodes", self.top_nodes, (self.n,), torch.bool, dev)
-        _check("bot_nodes", self.bot_nodes, (self.n,), torch.bool, dev)
+        for name, t, shape, dtype in (
+                ("conn", self.conn, (self.n_elems, 2), torch.int64),
+                ("top_nodes", self.top_nodes, (self.n,), torch.bool),
+                ("bot_nodes", self.bot_nodes, (self.n,), torch.bool)):
+            build.check_tensor("anchored", name, t, shape, dtype, dev)
         index = self._index = dev.index if dev.index is not None \
             else torch.cuda.current_device()
         self.grip = (self.top_nodes | self.bot_nodes).contiguous()
@@ -93,7 +86,8 @@ class AnchoredLaunch:
         kernel does not take or a launch the card refuses."""
         if not self._bound:
             self._bind()
-        _check("active", active, (self.n_elems,), torch.bool, self.device)
+        build.check_tensor("anchored", "active", active, (self.n_elems,),
+                           torch.bool, self.device)
         out = torch.empty(self.n, dtype=torch.bool, device=self.device)
         rc = self._lib.anchored_mask(
             self.conn.data_ptr(), active.data_ptr(), self.grip.data_ptr(),

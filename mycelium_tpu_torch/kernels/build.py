@@ -111,11 +111,18 @@ _SIGNATURES = {
     # blocks per SM (out), SMs (out)
     "anchored_grid_blocks": [ctypes.POINTER(ctypes.c_int),
                              ctypes.POINTER(ctypes.c_int)],
+    # u, conn, dir, length, k_ax, k_bd, top, active, stress, active_new,
+    # disp, status, changed, partial, done, e_mod, max_strain, converged,
+    # iters, n_nodes, n_elems, grid, stream
+    "post_solve_f32": [_P] * 15 + [ctypes.c_double] * 4
+    + [_I64, _I64, ctypes.c_int, _P],
+    "post_solve_f64": [_P] * 15 + [ctypes.c_double] * 4
+    + [_I64, _I64, ctypes.c_int, _P],
 }
 
 _launches = {"chain_matvec": 0, "pcr_factor": 0, "pcr_apply": 0,
              "anast_scan": 0, "chain_cg": 0, "tree_cg": 0,
-             "ordered_sum": 0, "anchored": 0}
+             "ordered_sum": 0, "anchored": 0, "post_solve": 0}
 
 
 def count_launch(name: str) -> None:
@@ -212,6 +219,17 @@ def check(rc: int, name: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def check_tensor(kernel: str, name: str, t, shape, dtype, device) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a bound launch (K7, K8) takes."""
+    if t.device != device or t.dtype != dtype or \
+            tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(
+            f"{kernel}: {name} must be a contiguous {dtype} tensor of shape "
+            f"{tuple(shape)} on {device}, got {t.dtype} {tuple(t.shape)} on "
+            f"{t.device} (contiguous={t.is_contiguous()})")
 
 
 def stream_handle(t) -> int:

@@ -1,5 +1,6 @@
 // Deterministic grid-wide sums for the persistent cooperative kernels (K5
-// chain_cg.cu, K6 tree_cg.cu): each block writes its partial sum to its own
+// chain_cg.cu, K6 tree_cg.cu; K8 post_solve.cu takes block_sums for its
+// last-block pass): each block writes its partial sum to its own
 // slot; after a grid-wide barrier every block adds all slots in the same
 // fixed order, so every block holds bit-identical totals and takes the same
 // decisions with no further barrier. No float atomics: a rerun on the same

@@ -37,8 +37,9 @@ HOST_SPANS = ("fea.sync.stats",)     # in the registry, not in the trace
 # parent span -> its direct children, which do not overlap one another
 CHILDREN = {
     "fea.ramp": ("fea.solve", "fea.post_solve", "fea.refresh",
-                 "fea.records.write", "fea.records.fetch", "fea.sync.flag",
-                 "fea.sync.status"),
+                 "fea.records.fetch", "fea.sync.flag", "fea.sync.status"),
+    # the CPU's post-solve writes the step's record rows
+    "fea.post_solve": ("fea.records.write",),
     "fea.refresh": ("fea.refresh.trip",),
     "fea.refresh.trip": ("fea.sync.trip",),
     "fea.solve": ("fea.sync.stats",),
