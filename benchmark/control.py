@@ -5,9 +5,10 @@
 
 ``--side control`` (the default) puts the reference in TF32
 (``reference/pulltest.py``, ``precision="tf32"``) in the program's place:
-it produces what the timed path produces (a pull test of each network, or
-the sampled cold solves at displacements drawn from the seed), judged as
-a run judges the program. It needs no card. The configuration states
+it produces what the timed path produces (a pull test of each network,
+the sampled cold solves at displacements drawn from the seed, or a
+sweep's first rotation of each network at the seed's displacements),
+judged as a run judges the program. It needs no card. The configuration states
 float32, the program runs with TF32 off (PyTorch's default; K6 has no
 tensor-core path) and has no lower-precision path of its own, so TF32 is
 the nearest precision below (see the reference's docstring for what is
@@ -15,8 +16,8 @@ rounded).
 
 ``--side program`` runs the program on the card through the cell's own
 kind (``benchmark/kinds/``): set-up, ``units`` units (two rounds of the
-networks by default) and the comparison, with no window: the sound
-readings.
+networks by default, a sweep's rotation of every leg on each network) and
+the comparison, with no window: the sound readings.
 
 ``--drawn`` makes network i of n at seed seed·n + i, where the mix names
 fixed networks (``mesh_seeds``), so that readings over many seeds cover
@@ -54,9 +55,38 @@ def networks(cell, seed: int):
         yield coords, conn, ref.Physics.of(fields, fields["grip_length"])
 
 
+def sweep_control(cell, seed: int) -> dict:
+    """A sweep's first rotation of each network, every leg's x the TF32
+    reference's at the unit's displacement, judged as ``check`` judges."""
+    from benchmark.harness.networks import Network
+    from benchmark.harness.spec import kind_module
+    from benchmark.reference import pulltest as ref
+    kind = kind_module(cell.root, "solver_sweep")
+    t = cell.traffic
+    legs = kind.legs(cell.config)
+    nets = [Network(coords, conn, dict(cell.config["fea"],
+                                       grip_length=phys.grip_length),
+                    None, None)
+            for coords, conn, phys in networks(cell, seed)]
+    dys = t["dy_max"] * (1.0 - np.random.default_rng([seed, 1]).random(
+        len(legs) * len(nets)))
+    low = [ref.Mesh(n.coords, n.conn, ref.Physics.of(
+        n.fields, n.fields["grip_length"]), "tf32").unit_pull(
+            np.ones(len(n.conn), bool)) for n in nets]
+    items = []
+    for i, dy in enumerate(dys):
+        k, j = kind.leg_and_network(i, len(legs), len(nets))
+        items.append((j, k, float(dy), low[j] * dy, 0, True, 0.0))
+    fea = cell.config["fea"]
+    return kind.judge(nets, [kind.leg_name(g) for g in legs], items,
+                      int(fea["max_iter"]), float(fea["rtol"]))
+
+
 def control(cell, seed: int) -> dict:
     from benchmark.reference import pulltest as ref
     t = cell.traffic
+    if t["kind"] == "solver_sweep":
+        return sweep_control(cell, seed)
     if t["kind"] == "pull_test":
         dmax = float(t["displacement_max"])
         rng = np.random.default_rng([seed, 2])
@@ -113,6 +143,10 @@ def main(argv=None) -> int:
         else:
             import torch
             n = args.units or 2 * int(cell.traffic["networks"])
+            if cell.traffic["kind"] == "solver_sweep" and not args.units:
+                from benchmark.harness.spec import kind_module
+                n = len(kind_module(ROOT, "solver_sweep").legs(
+                    cell.config)) * int(cell.traffic["networks"])
             got = program(cell, seed, n, torch.device("cuda", 0))
         print(json.dumps({"workload": cell.name, "seed": seed,
                           "side": args.side, "drawn": args.drawn,

@@ -1,8 +1,8 @@
 """Milliseconds a cold solve: the window's host time over the solves it
-completed."""
+completed, for both cold-solve kinds (``cold_solve``, ``solver_sweep``)."""
 
 
 def read(view):
-    if view.kind != "cold_solve" or not view.unit_s:
+    if view.kind not in ("cold_solve", "solver_sweep") or not view.unit_s:
         return None
     return 1e3 * view.window_s / len(view.unit_s)
